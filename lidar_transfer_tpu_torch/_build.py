@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels from ``csrc/`` and call them through ctypes.
 
-All ``csrc/*.cu`` files compile with ``nvcc`` into one shared library with a
-plain C interface (no PyTorch headers, so a build takes seconds). The
-library is named after a hash of the sources and flags
+Each ``csrc/*.cu`` file (with the ``*.cuh`` headers it includes) compiles
+with its own ``nvcc``, all started together, and the objects link into one
+shared library with a plain C interface (no PyTorch headers, so a build
+takes seconds). The library is named after a hash of the sources and flags
 (``_build/_ltkernels-<hash>.so``) and is built at the first kernel launch,
 never at import: importing this module needs no ``nvcc`` and no card.
 
@@ -27,7 +28,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().with_name("_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -38,14 +39,21 @@ _F = ctypes.c_float
 SIGNATURES = {
     "lt_zbuffer_winners": (_P, _P, _L, _L, _P, _P, _P),
     "lt_confusion": (_P, _P, _L, _I, _P, _P),
-    "lt_tsdf_integrate": (_P, _P, _P, _P, _P, _P, _P,
-                          _I, _I, _I, _I, _I, _I,
+    "lt_tsdf_integrate": (_P, _P, _P, _P, _P, _P, _P, _P,
+                          _I, _I, _I, _I, _I, _I, _I,
                           _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F,
                           _I, _I, _I, _I, _I, _P),
+    "lt_tsdf_integrate_chain": (_P, _P, _P, _P, _P, _P, _P, _P,
+                                _I, _I, _I, _I, _I, _I, _I, _I,
+                                _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F,
+                                _I, _I, _I, _I, _P),
+    "lt_tsdf_geometry": (_P, _I, _I, _I, _I,
+                         _F, _F, _F, _F, _F, _F, _F, _F, _P),
 }
 
 #: launches per kernel since the last reset_launch_counts()
-_launches = {"zbuffer": 0, "confusion": 0, "tsdf_integrate": 0}
+_launches = {"zbuffer": 0, "confusion": 0, "tsdf_integrate": 0,
+             "tsdf_integrate_chain": 0, "tsdf_geometry": 0}
 _lib: ctypes.CDLL | None = None
 _lock = threading.Lock()
 
@@ -81,6 +89,20 @@ def _nvcc() -> str:
                        "(set CUDA_HOME or put nvcc on PATH)")
 
 
+def _run(cmds: list[list[str]]) -> None:
+    """Run the commands in parallel; raise with the output of a failure."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{out}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+
+
 def build() -> Path:
     """Compile ``csrc/*.cu`` unless the hashed library already exists."""
     out = library_path()
@@ -88,12 +110,17 @@ def build() -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in sources() if s.suffix == ".cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    nvcc = _nvcc()
+    cus = [s for s in sources() if s.suffix == ".cu"]
+    objs = [tmp.with_name(f"{tmp.name}.{s.stem}.o") for s in cus]
+    try:
+        _run([[nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(o)]
+              for s, o in zip(cus, objs)])
+        _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+               *(str(o) for o in objs)]])
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     os.replace(tmp, out)
     return out
 

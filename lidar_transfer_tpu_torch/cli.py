@@ -1,16 +1,20 @@
 """Command-line entry point for batch scan transfer (PyTorch port).
 
 Counterpart of ``lt-transfer`` (``lidar_transfer_tpu/cli.py``) for the
-mergemesh adaption with splat synthesis:
+mergemesh and mesh adaptions (``adaption`` and ``number_of_scans`` of the
+config) with splat synthesis:
 
   python -m lidar_transfer_tpu_torch.cli -d DATASET [-c CFG.yaml] [-s SEQ]
       [-t TARGET.yaml] [-o OFFSET] [-p OUT] [-b] [-w] [--one_scan]
       [--frames N] [--fixed-bounds] [--metrics-json F] [--stream N]
-      [--device cuda|cpu]
+      [--ply DIR] [--device cuda|cpu]
 
 It prints the same "IoU:", "Acc:", "MSE: " and "Took: ...s" lines (the
 metric lines when source and target image dims agree) and writes the
-per-frame metrics to --metrics-json. It runs on the card unless
+per-frame metrics to --metrics-json. ``--ply DIR`` writes each frame's
+fused volume as a PLY mesh coloured by label (``DIR/<index>.ply``) and
+records its triangle count; it needs the per-frame path, so it turns
+``--stream`` off. It runs on the card unless
 ``--device cpu`` is given; without a CUDA device it refuses to start.
 """
 
@@ -28,7 +32,8 @@ import torch
 
 from lidar_transfer_tpu.utils.prefetch import Prefetcher
 from lidar_transfer_tpu.utils.runtime import StageTimer
-from lidar_transfer_tpu_torch.config import SensorSpec, TransferConfig
+from lidar_transfer_tpu_torch.config import (SensorSpec, TransferConfig,
+                                             make_color_lut)
 from lidar_transfer_tpu_torch.datasets import kitti
 from lidar_transfer_tpu_torch.metrics.compare import compare_scans
 from lidar_transfer_tpu_torch.ops import projection as P
@@ -68,6 +73,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--stream", type=int, default=0, metavar="N",
                    help="Transfer N frames per TransferEngine."
                         "transfer_stream call. 0 = per-frame (default).")
+    p.add_argument("--ply", type=str, default=None, metavar="DIR",
+                   help="Write each frame's fused volume as a PLY mesh "
+                        "coloured by label into DIR (turns --stream off).")
     p.add_argument("--device", type=str, default="cuda",
                    help="Torch device (default cuda; cpu only when asked "
                         "for).")
@@ -100,6 +108,9 @@ def main(argv=None) -> int:
         return 2
     if args.stream < 0:
         raise SystemExit(f"--stream must be >= 0, got {args.stream}")
+    if args.stream and args.ply:
+        print("--stream disabled: --ply needs the per-frame path")
+        args.stream = 0
 
     cfg = (TransferConfig.from_yaml(args.config) if args.config
            else TransferConfig())
@@ -191,6 +202,9 @@ def main(argv=None) -> int:
                 yield from flush()
         yield from flush()
 
+    lut = (None if not args.ply else
+           (make_color_lut(cfg.color_map_bgr)[:, ::-1] * 255).astype(
+               np.uint8))
     all_metrics = []
     try:
         for n_done, (i, window, vs, timer, t0) in enumerate(
@@ -209,6 +223,10 @@ def main(argv=None) -> int:
                 with timer.span("write", 1):
                     frame_metrics["points_written"] = write_virtual_scan(
                         out_path, i, vs)
+            if args.ply:
+                os.makedirs(args.ply, exist_ok=True)
+                frame_metrics["triangles"] = eng.export_mesh(
+                    os.path.join(args.ply, f"{i:06d}.ply"), colorize=lut)
             s = time.time() - t0
             print("Took: %.2fs" % s)
             frame_metrics["seconds"] = s

@@ -13,7 +13,8 @@ import numpy as np
 import torch
 
 from lidar_transfer_tpu_torch.ops.projection import RangeImage
-from lidar_transfer_tpu_torch.ops.tsdf import TSDFState
+from lidar_transfer_tpu_torch.ops.tsdf import (COMPACT_DTYPES, F32_DTYPES,
+                                               TSDFState)
 from lidar_transfer_tpu_torch.pipeline.multiscan import ScanWindow
 
 
@@ -32,14 +33,20 @@ def window_from_numpy(window, device="cpu") -> ScanWindow:
         rel_pose=_tensor(window.rel_pose, device))
 
 
-def state_from_numpy(state, device="cpu") -> TSDFState:
-    """A volume with fields tsdf/weight/label/rem -> the port's TSDFState
-    (f32, f32, i32, f32)."""
-    return TSDFState(
-        tsdf=_tensor(np.asarray(state.tsdf, np.float32), device),
-        weight=_tensor(np.asarray(state.weight, np.float32), device),
-        label=_tensor(np.asarray(state.label, np.int32), device),
-        rem=_tensor(np.asarray(state.rem, np.float32), device))
+def state_from_numpy(state, device="cpu", compact: bool = False
+                     ) -> TSDFState:
+    """A volume with fields tsdf/weight/label/rem -> the port's TSDFState:
+    f32/f32/i32/f32, or with ``compact`` bf16/bf16/int16/bf16. A JAX
+    compact state's values (bf16 and int16) cross over exactly either way;
+    a float32 state becomes compact by rounding to nearest even."""
+    dts = COMPACT_DTYPES if compact else F32_DTYPES
+    # numpy has no bf16: values pass as float32 (exact for bf16 values);
+    # np.array copies, so the port's in-place updates leave ``state`` be
+    return TSDFState(*(
+        torch.from_numpy(np.array(getattr(state, f), np.float32
+                                  if dt.is_floating_point else np.int32)
+                         ).to(device=device, dtype=dt)
+        for f, dt in zip(TSDFState._fields, dts)))
 
 
 def range_image_from_numpy(ri, device="cpu") -> RangeImage:
@@ -49,10 +56,12 @@ def range_image_from_numpy(ri, device="cpu") -> RangeImage:
 
 
 def to_numpy(x):
-    """Tensor -> numpy array; NamedTuple / tuple / list -> the same
-    container of numpy arrays (other values pass through)."""
+    """Tensor -> numpy array (bf16 as float32); NamedTuple / tuple / list
+    -> the same container of numpy arrays (other values pass through)."""
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        x = x.detach().cpu()
+        # numpy has no bf16; float32 holds every bf16 value exactly
+        return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
     if isinstance(x, tuple) and hasattr(x, "_fields"):
         return type(x)(*(to_numpy(v) for v in x))
     if isinstance(x, (tuple, list)):

@@ -23,7 +23,9 @@ from lidar_transfer_tpu_torch.datasets import synthetic
 from lidar_transfer_tpu_torch.metrics import confusion as TF
 from lidar_transfer_tpu_torch.ops import projection as TP
 from lidar_transfer_tpu_torch.ops import tsdf as TS
-from lidar_transfer_tpu_torch.ops.tsdf_cuda import integrate_cuda
+from lidar_transfer_tpu_torch.ops.tsdf_cuda import (integrate_chain_cuda,
+                                                    integrate_cuda,
+                                                    precompute_geometry_cuda)
 from lidar_transfer_tpu_torch.pipeline import deform as TD
 from lidar_transfer_tpu_torch.pipeline.multiscan import ScanWindow
 
@@ -54,8 +56,8 @@ def test_imports_leave_jax_out():
 def test_build_needs_no_nvcc_until_a_launch(tmp_path, monkeypatch):
     """_build imports without nvcc; a build without nvcc raises."""
     names = sorted(p.name for p in _build.sources())
-    assert names == ["confusion.cu", "errors.cu", "tsdf_integrate.cu",
-                     "zbuffer.cu"]
+    assert names == ["confusion.cu", "errors.cu", "tsdf_common.cuh",
+                     "tsdf_geometry.cu", "tsdf_integrate.cu", "zbuffer.cu"]
     assert _build.library_path().name.startswith("_ltkernels-")
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
     monkeypatch.setenv("PATH", str(tmp_path))
@@ -65,19 +67,22 @@ def test_build_needs_no_nvcc_until_a_launch(tmp_path, monkeypatch):
     assert list(tmp_path.iterdir()) == []
 
 
-def _small_window(spec):
+def _small_window(spec, nscans=1):
     pts, rem, lbl = synthetic.simulate_scan(synthetic.Scene.default(),
                                             spec, np.eye(4))
     n = pts.shape[0]
-    return ScanWindow(points=torch.from_numpy(pts)[None],
-                      remissions=torch.from_numpy(rem)[None],
-                      labels=torch.from_numpy(lbl)[None],
-                      valid=torch.ones((1, n), dtype=torch.bool),
-                      rel_pose=torch.eye(4)[None])
+    rep = lambda t: torch.from_numpy(t)[None].repeat(  # noqa: E731
+        nscans, *([1] * t.ndim))
+    return ScanWindow(points=rep(pts), remissions=rep(rem),
+                      labels=rep(lbl),
+                      valid=torch.ones((nscans, n), dtype=torch.bool),
+                      rel_pose=torch.eye(4)[None].repeat(nscans, 1, 1))
 
 
 def test_cpu_calls_launch_no_kernel(small_spec):
-    """CPU tensors take the plain versions: every launch count stays 0."""
+    """CPU tensors take the plain versions: every launch count stays 0,
+    on the mergemesh path and on the mesh path with its chain and
+    geometry table."""
     _build.reset_launch_counts()
     eng = TD.TransferEngine(small_spec, small_spec, CFG, fixed_bounds=True,
                             device="cpu")
@@ -85,17 +90,28 @@ def test_cpu_calls_launch_no_kernel(small_spec):
     eng.fused_state()
     TF.confusion_matrix(vs.label.reshape(-1), vs.label.reshape(-1), 260)
     assert bool(vs.mask.any())
-    assert _build.launch_counts() == {"zbuffer": 0, "confusion": 0,
-                                      "tsdf_integrate": 0}
+    mesh = TD.TransferEngine(
+        small_spec, small_spec,
+        TransferConfig(adaption="mesh", number_of_scans=3,
+                       voxel_size=CFG.voxel_size,
+                       voxel_bounds=CFG.voxel_bounds),
+        fixed_bounds=True, device="cpu", compact_volume=True)
+    vm = mesh.transfer_fast(_small_window(small_spec, 3))
+    state = mesh.fused_state()
+    assert bool(vm.mask.any()) and bool((state.tsdf < 1).any())
+    assert len(mesh._geoms) == 1
+    assert _build.launch_counts() == {
+        "zbuffer": 0, "confusion": 0, "tsdf_integrate": 0,
+        "tsdf_integrate_chain": 0, "tsdf_geometry": 0}
 
 
-@pytest.mark.parametrize("case", ["cp", "mesh", "catmesh", "raymarch",
+@pytest.mark.parametrize("case", ["cp", "catmesh", "raymarch",
                                   "upsample"])
 def test_engine_refuses_unported(case):
     """Unported adaptions, synthesis and upsampling targets raise
     NotImplementedError instead of routing elsewhere."""
     cfg, kw, target = CFG, {}, HDL32
-    if case in ("cp", "mesh", "catmesh"):
+    if case in ("cp", "catmesh"):
         cfg = TransferConfig(adaption=case)
     elif case == "raymarch":
         kw = dict(synthesis="raymarch")
@@ -122,6 +138,12 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError):
         integrate_cuda(state, spec, img, img.to(torch.int32), img,
                        fov_up_deg=3.0, fov_down_deg=-25.0)
+    stack = img[None].repeat(3, 1, 1)
+    with pytest.raises(ValueError):
+        integrate_chain_cuda(state, spec, stack, stack.to(torch.int32),
+                             stack, fov_up_deg=3.0, fov_down_deg=-25.0)
+    with pytest.raises(ValueError):
+        precompute_geometry_cuda(spec, 3.0, -25.0, 2, device=meta)
 
 
 def test_chip_smoke_imports_only_the_port():

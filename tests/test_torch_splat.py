@@ -126,18 +126,17 @@ def test_target_assemble_matches(sources, small_spec, target):
 
 
 def test_splat_synthesize_refuses_unported_paths(sources):
-    """fold/volume attributes and upsampling chords raise, pointing at
-    the ROADMAP, instead of running another path."""
+    """Upsampling chords (interp) raise, pointing at the ROADMAP, instead
+    of running another path; an unknown attrs raises ValueError."""
     srcs = [tuple(torch.from_numpy(a) for a in sources)]
     spec = TS.VolumeSpec(tuple(ORIGIN.tolist()), VOX, (128, 128, 32))
     kw = dict(target_H=16, target_W=256, fov_up_deg=8.0,
               fov_down_deg=-22.0, vol_origin=ORIGIN)
-    for bad in (dict(attrs="fold"), dict(attrs="volume"),
-                dict(interp=(32, 512, 1, 0, 0.05))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TSp.splat_synthesize(spec, srcs, **kw, **bad)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TSp.splat_synthesize(spec, srcs * 2, **kw)
-    rng, lbl, rem, ends, mask = TSp.splat_synthesize(spec, srcs, **kw)
+        TSp.splat_synthesize(None, spec, srcs, interp=(32, 512, 1, 0, 0.05),
+                             **kw)
+    with pytest.raises(ValueError, match="attrs"):
+        TSp.splat_synthesize(None, spec, srcs, attrs="Fold", **kw)
+    rng, lbl, rem, ends, mask = TSp.splat_synthesize(None, spec, srcs, **kw)
     assert rng.shape == (16, 256) and ends.shape == (16, 256, 3)
     assert bool(mask.any()) and bool(torch.isfinite(ends).all())
