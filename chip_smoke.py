@@ -3,14 +3,16 @@
 
     python3 chip_smoke.py
 
-1. Builds the five CUDA kernels from ``lidar_transfer_tpu_torch/csrc`` (one
+1. Builds the eight CUDA kernels from ``lidar_transfer_tpu_torch/csrc`` (one
    nvcc per source, in parallel) and holds each against its plain PyTorch
    version on the card: the z-buffer bit-exact, the confusion counts exact,
    the TSDF integrate (float32 and compact state, with and without the
    geometry table) and its S-scan chain (S=3, 256x256x208) with label and
    weight equal on >= 1 - 1e-6 of voxels, float32 tsdf/rem within 1e-5 and
    compact ones within one bf16 ulp, the geometry table's rows equal on
-   >= 1 - 1e-6 of voxels.
+   >= 1 - 1e-6 of voxels; the three probe kernels at 64x256x256 in every
+   variant, int16 labels exact and bf16 outputs within one bf16 ulp, the
+   writes exact.
 2. Drives each path at the reference operating point (HDL64 64x2048
    source, voxel 0.05 m, bounds +-50/+-50/+-5 m, fixed bounds), with the
    launch counts set to 0 just before it and read just after:
@@ -21,18 +23,27 @@
    - mesh, three scans per window: the CLI as identity and as HDL64 ->
      HDL32, and with --ply on one frame, then ``fused_state()`` (the
      S-scan chain with the geometry table) with a float32 and a compact
-     volume.
+     volume;
+   - cp: the CLI as identity (exact: IoU and Acc 1, MSE 0) and as
+     HDL64 -> HDL32;
+   - catmesh: the CLI as HDL64 -> HDL32, then ``fused_state()``;
+   - upsampling, HDL64 -> HDL64x2 (128 beams, the same fov): the CLI per
+     frame and with --stream 4;
+   - the probes at 1024x1024x256 through ``probes.run`` (the rows of
+     ``python -m lidar_transfer_tpu_torch.probes all``).
    Every kernel of a path must have launched in its run.
 3. Checks the outputs: files written, the stream equal to the per-frame run,
-   the card's virtual scans against the port's CPU run of the same frame,
-   16-plane X-slabs of the fused volumes against the plain integrate and
-   the plain chain, a non-empty PLY.
+   the card's virtual scans against the port's CPU run of the same frame
+   (mergemesh, mesh, cp, upsampling), 16-plane X-slabs of the fused volumes
+   against the plain integrate and the plain chain, a non-empty PLY, a cp
+   identity transfer equal to the source projection bit for bit, catmesh's
+   files and scan equal to mergemesh's bit for bit.
 4. Times each kernel against its plain version (the chain and the table at
-   2048x2048x208; the integrate with and without the table),
-   transfer_fast per frame of both adaptions, the stream rate,
+   2048x2048x208; the integrate with and without the table; every probe
+   row), transfer_fast per frame of every adaption, the stream rates,
    fused_state() and export_mesh(), each with the GPU's name and power
-   limit, and profiles transfer_fast of both adaptions for its device
-   time, device launches and idle share per frame.
+   limit, and profiles the frame of every adaption for its device time,
+   device launches and idle share.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists the kernels as JSON. Any failed check raises, and the exit code is
@@ -45,7 +56,6 @@ import contextlib
 import io
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import time
@@ -53,40 +63,18 @@ import time
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+#: the reference operating point's volume bounds and HDL32 target
+BOUNDS = ((-50.0, 50.0), (-50.0, 50.0), (-5.0, 5.0))
+HDL32_PATH = os.path.join(REPO, "configs", "hdl32.yaml")
+sys.path.insert(0, REPO)
 
-
-def _gpu_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
-
-
-def _cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
-    """Mean ms per call of ``fn`` between CUDA events, after a warm-up."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
-    stop.synchronize()
-    return start.elapsed_time(stop) / iters
+from lidar_transfer_tpu_torch.probes.timing import (  # noqa: E402
+    bf16_ulp, cuda_ms, gpu_line)
 
 
 def check(cond, what: str) -> None:
     if not cond:
         raise AssertionError(f"chip_smoke: {what}")
-
-
-def _bf16_ulp(torch, x):
-    """One bf16 ulp at |x| (8 bits of mantissa), float32."""
-    e = torch.floor(torch.log2(torch.clamp(x.abs(), min=2.0 ** -126)))
-    return torch.exp2(e - 7)
 
 
 def _compare_states(torch, a, b, what: str) -> float:
@@ -105,7 +93,7 @@ def _compare_states(torch, a, b, what: str) -> float:
         y = getattr(b, f)[same].float()
         d = (x - y).abs()
         worst = max(worst, float(d.max()) if d.numel() else 0.0)
-        ok = (bool((d <= _bf16_ulp(torch, y)).all()) if compact
+        ok = (bool((d <= bf16_ulp(y)).all()) if compact
               else worst <= 1e-5)
         check(ok, f"{what}: {f} beyond " +
               ("one bf16 ulp" if compact else "1e-5"))
@@ -182,6 +170,113 @@ def _check_fusion_kernels(torch, rng, kernels) -> None:
         max_abs_err=worst)
 
 
+def _check_probe_kernels(torch, rng, kernels) -> None:
+    """Phase 1 for the three probe kernels at 64x256x256, every variant
+    against its plain version: int16 labels exact, bf16 outputs within one
+    bf16 ulp, the writes exact."""
+    from lidar_transfer_tpu_torch.ops import tsdf as TS
+    from lidar_transfer_tpu_torch.ops.tsdf_cuda import \
+        precompute_geometry_cuda
+    from lidar_transfer_tpu_torch.probes import ablate, parts, write
+    from lidar_transfer_tpu_torch.probes.timing import max_diff
+
+    dev = torch.device("cuda")
+    dims = X, Y, Z = 64, 256, 256
+    # parts: a placement whose voxels lie in FOV and in the band of the
+    # random depths, labels 0..19 in the packed column (the script's own
+    # placement leaves every voxel behind its 0-1 m depths)
+    params = np.zeros((2, 8), np.float32)
+    params[0, :5] = (3.0, -6.4, -1.6, 0.05, -0.44)
+    cols = [(rng.random((X, parts.CW, Y)) * s).astype(np.float32)
+            for s in (8.0, 16384.0 * 20)]
+    args = [torch.from_numpy(a).to(dev) for a in (params, *cols)]
+    worst = 0.0
+    for variant in parts.VARIANTS:
+        for n_out in (1, 3):
+            ref = parts.parts_plain(variant, *args, Z=Z, n_out=n_out)
+            for bx in (2, 4, 8):
+                worst = max(worst, max_diff(
+                    parts.probe_parts(variant, *args, Z=Z, n_out=n_out,
+                                      BX=bx), ref,
+                    f"probe_parts {variant} x{n_out} BX{bx}"))
+    upd = ref[0] < 1                                 # full, three outputs
+    print(f"probe_parts {dims}: 4 variants x 1/3 outputs x BX 2/4/8 equal "
+          f"to plain, max |diff| {worst:g}; full updates "
+          f"{float(upd.float().mean()):.4f} of voxels, "
+          f"{int(torch.unique(ref[1][upd]).numel())} labels")
+    check(0.001 < float(upd.float().mean()) < 0.9, "probe_parts updates "
+          "no share of the voxels")
+    kernels["probe_parts"] = dict(
+        route="cuda", source="lidar_transfer_tpu_torch/csrc/probe_parts.cu",
+        replaces="scripts/probe_kernel_parts.py:94", max_abs_err=worst)
+
+    # ablate: depths 13-19 m around a volume 14 m out, labels 0..19 (0
+    # takes the same-class branch), a crop short of the dims
+    origin = (14.0, -6.4, -6.4)
+    spec = TS.VolumeSpec(origin, 0.05, dims)
+    imgs = [torch.from_numpy(a).to(dev) for a in (
+        (rng.random((64, 2048)) * 6 + 13).astype(np.float32),
+        rng.integers(0, 20, (64, 2048)).astype(np.int32),
+        rng.random((64, 2048)).astype(np.float32))]
+    table = precompute_geometry_cuda(spec, 3.0, -25.0, 64, device=dev)
+    dcol, lrcol = ablate.build_cols(*imgs, dims, origin)
+    args = (ablate.ablate_params(origin, (60, 250, 200), dev), dcol, lrcol,
+            table)
+    worst = 0.0
+    for div in (True, False):
+        ref = ablate.ablate_plain(div, *args)
+        for bx in (1, 2, 4):
+            worst = max(worst, max_diff(
+                ablate.probe_ablate(div, *args, BX=bx), ref,
+                f"probe_ablate div={div} BX{bx}"))
+    upd = ref[0] < 1
+    print(f"probe_ablate {dims}: precols and nodiv x BX 1/2/4 equal to "
+          f"plain, max |diff| {worst:g}; updates "
+          f"{float(upd.float().mean()):.4f} of voxels, same-class "
+          f"{float((upd & (ref[1] == 0)).float().mean()):.4f}")
+    check(0.001 < float(upd.float().mean()) < 0.9, "probe_ablate updates "
+          "no share of the voxels")
+    kernels["probe_ablate"] = dict(
+        route="cuda", source="lidar_transfer_tpu_torch/csrc/probe_ablate.cu",
+        replaces="scripts/probe_integrate_ablate.py:53", max_abs_err=worst)
+
+    # write: blocks, dtypes, three outputs, flat rows, reading first, and
+    # probe_alias's modes, over old contents of 7
+    n = 0
+    for dts, block in (
+            ([torch.bfloat16], dict(BX=1, BY=256)),
+            ([torch.bfloat16], dict(BX=2, BY=128)),
+            ([torch.float32], dict(BX=4, BY=256)),
+            ([torch.int32], dict(BX=4, BY=256)),
+            ([torch.int8], dict(BX=4, BY=256)),
+            ([torch.int16], dict(BX=8, BY=64)),
+            ([torch.bfloat16] * 3, dict(BX=2, BY=256)),
+            (write.ALIAS_DTYPES, dict(BX=2, BY=256, read_first=True)),
+            ([torch.bfloat16], dict(BR=256)),
+            ([torch.bfloat16], dict(BR=1024))):
+        got = write.probe_write([torch.full(dims, 7, dtype=dt, device=dev)
+                                 for dt in dts], **block)
+        ref = write.write_plain([torch.empty(dims, dtype=dt, device=dev)
+                                 for dt in dts])
+        max_diff(got, ref, f"probe_write {dts} {block}")
+        n += 1
+    for mode in write.ALIAS_MODES:
+        state = [torch.full(dims, 7, dtype=dt, device=dev)
+                 for dt in write.ALIAS_DTYPES + (torch.bfloat16,)]
+        out = write.alias_call(mode, state, BX=2, BY=256)
+        max_diff(out[:3], write.write_plain(
+            [torch.empty_like(t) for t in state[:3]]), f"alias {mode}")
+        check(len(out) == (4 if mode == "alias_any4" else 3)
+              and (mode == "noalias") != (out[0] is state[0]),
+              f"alias {mode}: outputs not arranged as the mode says")
+        n += 1
+    print(f"probe_write {dims}: {n} block, dtype, row and alias cases "
+          "equal to the plain fill")
+    kernels["probe_write"] = dict(
+        route="cuda", source="lidar_transfer_tpu_torch/csrc/probe_write.cu",
+        replaces="scripts/probe_pallas_write.py:40", max_abs_err=0.0)
+
+
 def main() -> int:
     import torch
 
@@ -189,7 +284,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's smoke run needs one "
               "NVIDIA GPU", file=sys.stderr)
         return 1
-    sys.path.insert(0, REPO)
     from lidar_transfer_tpu_torch import _build
     from lidar_transfer_tpu_torch.metrics import confusion as TF
     from lidar_transfer_tpu_torch.ops import projection as TP
@@ -197,7 +291,7 @@ def main() -> int:
     from lidar_transfer_tpu_torch.ops.tsdf_cuda import integrate_cuda
 
     dev = torch.device("cuda")
-    gpu = _gpu_line()
+    gpu = gpu_line()
     print(gpu)
     tag = f"[{gpu}]"
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -230,9 +324,9 @@ def main() -> int:
         route="cuda", source="lidar_transfer_tpu_torch/csrc/zbuffer.cu",
         replaces="lidar_transfer_tpu/ops/projection.py:209",
         max_abs_err=err,
-        ms=_cuda_ms(torch, lambda: TP.zbuffer_winners(pix_t, key_t, npix),
+        ms=cuda_ms(lambda: TP.zbuffer_winners(pix_t, key_t, npix),
                     200),
-        plain_ms=_cuda_ms(torch, lambda: TP.zbuffer_winners_plain(
+        plain_ms=cuda_ms(lambda: TP.zbuffer_winners_plain(
             pix_t, key_t, npix), 50))
 
     m, C = 131072, 260
@@ -253,9 +347,9 @@ def main() -> int:
         route="cuda", source="lidar_transfer_tpu_torch/csrc/confusion.cu",
         replaces="lidar_transfer_tpu/metrics/confusion.py:73",
         max_abs_err=err,
-        ms=_cuda_ms(torch, lambda: TF.confusion_matrix(pred_t, tgt_t, C),
+        ms=cuda_ms(lambda: TF.confusion_matrix(pred_t, tgt_t, C),
                     200),
-        plain_ms=_cuda_ms(torch, lambda: TF.confusion_scatter(
+        plain_ms=cuda_ms(lambda: TF.confusion_scatter(
             pred_t, tgt_t, C), 50))
 
     spec = TS.VolumeSpec((-6.4, -6.4, -5.0), 0.05, (256, 256, 208))
@@ -293,18 +387,27 @@ def main() -> int:
         replaces="lidar_transfer_tpu/ops/tsdf_pallas.py:372",
         max_abs_err=worst)
     _check_fusion_kernels(torch, rng, kernels)
+    _check_probe_kernels(torch, rng, kernels)
 
-    # ------------------------------------------------------ 2. main path
+    # ------------------------------------------------------ 2. the paths
+    paths = {}
     with tempfile.TemporaryDirectory(prefix="lt_smoke_") as work:
-        counts = _main_path(torch, work, kernels, tag)
+        paths["mergemesh"] = _main_path(torch, work, kernels, tag)
         torch.cuda.empty_cache()
-        mesh_counts = _mesh_path(torch, work, kernels, tag)
+        paths["mesh"] = _mesh_path(torch, work, kernels, tag)
+        torch.cuda.empty_cache()
+        paths["cp"] = _cp_path(torch, work, tag)
+        paths["catmesh"] = _catmesh_path(torch, work, tag)
+        torch.cuda.empty_cache()
+        paths["upsample"] = _upsample_path(torch, work, tag)
+        torch.cuda.empty_cache()
+    paths["probes"] = _probe_path(torch, kernels, tag)
     check("jax" not in sys.modules, "the port imported jax")
     for name, k in kernels.items():
         print(f"kernel {name}: {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} "
               f"ms {tag}")
-    rows = [dict(name=name, launches=counts[name] + mesh_counts[name], **k)
-            for name, k in kernels.items()]
+    rows = [dict(name=name, launches=sum(c[name] for c in paths.values()),
+                 **k) for name, k in kernels.items()]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -331,14 +434,70 @@ def _run_cli(work, base, name, *extra):
         return out, json.load(f), text
 
 
+def _config(work, name, dataset="kitti", **kw):
+    """A TransferConfig at the reference voxel and bounds, written to
+    ``work/name.yaml``; -> (config, the CLI's base arguments on the
+    dataset ``work/<dataset>`` with fixed bounds)."""
+    from lidar_transfer_tpu_torch.config import TransferConfig
+
+    cfg = TransferConfig(voxel_size=0.05, voxel_bounds=BOUNDS, **kw)
+    path = os.path.join(work, f"{name}.yaml")
+    cfg.to_yaml(path)
+    return cfg, ["-d", os.path.join(work, dataset), "-c", path,
+                 "--fixed-bounds", "-b", "-w"]
+
+
+def _sequence(work, dataset="kitti"):
+    """-> (the sequence ``work/<dataset>``, its scan capacity)."""
+    from lidar_transfer_tpu_torch.datasets import kitti
+
+    seq = kitti.KittiSequence.open(os.path.join(work, dataset))
+    return seq, kitti.scan_capacity(max(os.path.getsize(f) // 16
+                                        for f in seq.scan_files))
+
+
+def _same_files(out_a, out_b, what: str) -> None:
+    """The KITTI outputs under two CLI output dirs are equal byte for
+    byte."""
+    for sub in ("velodyne", "labels"):
+        d_a = os.path.join(out_a, "sequences", "00", sub)
+        d_b = os.path.join(out_b, "sequences", "00", sub)
+        names = sorted(os.listdir(d_a))
+        check(names == sorted(os.listdir(d_b)), f"{what}: {sub} files")
+        for fn in names:
+            with open(os.path.join(d_a, fn), "rb") as a, \
+                    open(os.path.join(d_b, fn), "rb") as b:
+                check(a.read() == b.read(), f"{what}: {sub}/{fn}")
+
+
+def _equal_scans(torch, a, b) -> bool:
+    return all(torch.equal(getattr(a, f), getattr(b, f))
+               for f in ("range", "label", "remission", "points", "mask"))
+
+
+def _card_vs_cpu(vs_card, vs_cpu, what: str) -> float:
+    """Label/mask agreement of the card's scan with the CPU's on
+    >= 99.9 % of pixels; -> the largest range difference where both
+    agree."""
+    lc, mc = vs_card.label.cpu(), vs_card.mask.cpu()
+    agree = float(((lc == vs_cpu.label) & (mc == vs_cpu.mask)).float().mean())
+    both = (lc == vs_cpu.label) & mc & vs_cpu.mask
+    rerr = (vs_card.range.cpu() - vs_cpu.range)[both].abs()
+    print(f"{what} card vs CPU: label/mask agreement {agree:.6f}, "
+          f"range error > 1e-3 m on {int((rerr > 1e-3).sum())} of "
+          f"{int(both.sum())} pixels, mask fill "
+          f"{float(mc.float().mean()):.4f}")
+    check(agree >= 0.999, f"{what}: card and CPU outputs disagree")
+    return float(rerr.max()) if rerr.numel() else 0.0
+
+
 def _main_path(torch, work, kernels, tag):
     """Phases 2-4 of the mergemesh path in the scratch directory ``work``
     (it writes the synthetic dataset ``work/kitti``); returns the launch
     counts of the path."""
     from lidar_transfer_tpu_torch import _build
-    from lidar_transfer_tpu_torch.config import (HDL64, SensorSpec,
-                                                 TransferConfig)
-    from lidar_transfer_tpu_torch.datasets import kitti, synthetic
+    from lidar_transfer_tpu_torch.config import HDL64, SensorSpec
+    from lidar_transfer_tpu_torch.datasets import synthetic
     from lidar_transfer_tpu_torch.ops import projection as TP
     from lidar_transfer_tpu_torch.ops import tsdf as TS
     from lidar_transfer_tpu_torch.ops.tsdf_cuda import integrate_cuda
@@ -348,16 +507,11 @@ def _main_path(torch, work, kernels, tag):
                                                              stack_windows)
 
     dev = torch.device("cuda")
-    ds = os.path.join(work, "kitti")
-    synthetic.write_kitti_dataset(ds, synthetic.Scene.default(), HDL64,
+    synthetic.write_kitti_dataset(os.path.join(work, "kitti"),
+                                  synthetic.Scene.default(), HDL64,
                                   n_scans=6)
-    cfg = TransferConfig(voxel_size=0.05, voxel_bounds=(
-        (-50.0, 50.0), (-50.0, 50.0), (-5.0, 5.0)))
-    cfg_path = os.path.join(work, "transfer.yaml")
-    cfg.to_yaml(cfg_path)
-    hdl32_path = os.path.join(REPO, "configs", "hdl32.yaml")
-    hdl32 = SensorSpec.from_yaml(hdl32_path)
-    base = ["-d", ds, "-c", cfg_path, "--fixed-bounds", "-b", "-w"]
+    cfg, base = _config(work, "transfer")
+    hdl32 = SensorSpec.from_yaml(HDL32_PATH)
 
     def run_cli(name, *extra):
         return _run_cli(work, base, name, *extra)
@@ -366,12 +520,10 @@ def _main_path(torch, work, kernels, tag):
     _, m_id, text = run_cli("identity")
     for key in ("IoU: ", "Acc: ", "MSE: ", "Took: "):
         check(text.count(key) == 6, f"identity run printed {key!r} lines")
-    out_x, m_x, _ = run_cli("cross", "-t", hdl32_path)
-    out_s, m_s, _ = run_cli("stream", "-t", hdl32_path, "--stream", "4")
+    out_x, m_x, _ = run_cli("cross", "-t", HDL32_PATH)
+    out_s, m_s, _ = run_cli("stream", "-t", HDL32_PATH, "--stream", "4")
 
-    seq = kitti.KittiSequence.open(ds)
-    cap = kitti.scan_capacity(max(os.path.getsize(f) // 16
-                                  for f in seq.scan_files))
+    seq, cap = _sequence(work)
     eng = TD.TransferEngine(HDL64, hdl32, cfg, fixed_bounds=True,
                             device=dev)
     w0 = load_window(seq, cfg, 0, cap, dev)
@@ -408,17 +560,10 @@ def _main_path(torch, work, kernels, tag):
     for fm in m_id:
         check(np.isfinite([fm["iou"], fm["acc"], fm["mse"]]).all()
               and 0 < fm["iou"] <= 1, f"identity metrics {fm}")
-    for sub in ("velodyne", "labels"):
-        d_x = os.path.join(out_x, "sequences", "00", sub)
-        d_s = os.path.join(out_s, "sequences", "00", sub)
-        for fn in sorted(os.listdir(d_x)):
-            with open(os.path.join(d_x, fn), "rb") as a, \
-                    open(os.path.join(d_s, fn), "rb") as b:
-                check(a.read() == b.read(),
-                      f"--stream 4 output differs from per-frame: {sub}/{fn}")
+    _same_files(out_x, out_s, "--stream 4 output differs from per-frame")
     print("--stream 4 output == per-frame output (all files)")
 
-    _, m_cpu, _ = run_cli("cpu", "-t", hdl32_path, "--device", "cpu",
+    _, m_cpu, _ = run_cli("cpu", "-t", HDL32_PATH, "--device", "cpu",
                           "--frames", "1")
     dn = abs(m_cpu[0]["points_written"] - m_x[0]["points_written"])
     print(f"cli --device cpu frame 0: {m_cpu[0]['points_written']} points, "
@@ -426,14 +571,8 @@ def _main_path(torch, work, kernels, tag):
     check(dn <= 1e-3 * hdl32.H * hdl32.W, "CPU and card point counts")
     cpu_eng = TD.TransferEngine(HDL64, hdl32, cfg, fixed_bounds=True,
                                 device="cpu")
-    vs_cpu = cpu_eng.transfer_fast(load_window(seq, cfg, 0, cap, "cpu"))
-    lc, mc = vs_card.label.cpu(), vs_card.mask.cpu()
-    agree = ((lc == vs_cpu.label) & (mc == vs_cpu.mask)).float().mean()
-    both = ((lc == vs_cpu.label) & mc & vs_cpu.mask)
-    rerr = float((vs_card.range.cpu() - vs_cpu.range)[both].abs().max())
-    print(f"card vs CPU (frame 0, HDL64->HDL32): label/mask agreement "
-          f"{float(agree):.6f}, max range error {rerr:g} m")
-    check(float(agree) >= 0.999, "card and CPU outputs disagree")
+    rerr = _card_vs_cpu(vs_card, cpu_eng.transfer_fast(
+        load_window(seq, cfg, 0, cap, "cpu")), "mergemesh (frame 0)")
     check(rerr <= 1e-3, "card and CPU ranges disagree")
 
     pts, rem, lbl, valid = merge_window(w0)
@@ -458,10 +597,10 @@ def _main_path(torch, work, kernels, tag):
     # ------------------------------------------------------------ 4. timing
     integ = lambda fn: lambda: fn(  # noqa: E731
         state, eng.vol_spec, ri.range, ri.label, ri.remission, **fkw)
-    k_ms = _cuda_ms(torch, integ(integrate_cuda), 10)
-    p_ms = _cuda_ms(torch, integ(TS.integrate), 2, warmup=1)
+    k_ms = cuda_ms(integ(integrate_cuda), 10)
+    p_ms = cuda_ms(integ(TS.integrate), 2, warmup=1)
     geom = eng._ensure_geom(hdl32.fov_up, hdl32.fov_down, HDL64.H)
-    kt_ms = _cuda_ms(torch, lambda: integrate_cuda(
+    kt_ms = cuda_ms(lambda: integrate_cuda(
         state, eng.vol_spec, ri.range, ri.label, ri.remission, v_tab=geom,
         **fkw), 10)
     kernels["tsdf_integrate"].update(ms=k_ms, plain_ms=p_ms)
@@ -471,10 +610,10 @@ def _main_path(torch, work, kernels, tag):
           f"{kt_ms:.3f} ms, plain {p_ms:.1f} ms {tag}")
 
     wins = [load_window(seq, cfg, i, cap, dev) for i in range(6)]
-    frame_ms = _cuda_ms(torch, lambda: [eng.transfer_fast(w)
+    frame_ms = cuda_ms(lambda: [eng.transfer_fast(w)
                                         for w in wins], 20) / len(wins)
     stacked = stack_windows(wins[:4])
-    stream_ms = _cuda_ms(torch, lambda: eng.transfer_stream(stacked), 20)
+    stream_ms = cuda_ms(lambda: eng.transfer_stream(stacked), 20)
     print(f"transfer_fast HDL64->HDL32: {frame_ms:.3f} ms/frame "
           f"({1e3 / frame_ms:.1f} scans/s) {tag}")
     print(f"transfer_stream 4 frames: {stream_ms:.3f} ms/batch "
@@ -487,9 +626,7 @@ def _mesh_path(torch, work, kernels, tag):
     """Phases 2-4 of the mesh adaption, three scans per window, on the
     dataset ``work/kitti``; returns the launch counts of the path."""
     from lidar_transfer_tpu_torch import _build
-    from lidar_transfer_tpu_torch.config import (HDL64, SensorSpec,
-                                                 TransferConfig)
-    from lidar_transfer_tpu_torch.datasets import kitti
+    from lidar_transfer_tpu_torch.config import HDL64, SensorSpec
     from lidar_transfer_tpu_torch.ops import tsdf as TS
     from lidar_transfer_tpu_torch.ops.tsdf_cuda import (
         integrate_chain_cuda, precompute_geometry_cuda)
@@ -497,18 +634,9 @@ def _mesh_path(torch, work, kernels, tag):
     from lidar_transfer_tpu_torch.pipeline.multiscan import load_window
 
     dev = torch.device("cuda")
-    ds = os.path.join(work, "kitti")
-    cfg = TransferConfig(adaption="mesh", number_of_scans=3,
-                         voxel_size=0.05, voxel_bounds=(
-                             (-50.0, 50.0), (-50.0, 50.0), (-5.0, 5.0)))
-    cfg_path = os.path.join(work, "mesh.yaml")
-    cfg.to_yaml(cfg_path)
-    hdl32_path = os.path.join(REPO, "configs", "hdl32.yaml")
-    hdl32 = SensorSpec.from_yaml(hdl32_path)
-    base = ["-d", ds, "-c", cfg_path, "--fixed-bounds", "-b", "-w"]
-    seq = kitti.KittiSequence.open(ds)
-    cap = kitti.scan_capacity(max(os.path.getsize(f) // 16
-                                  for f in seq.scan_files))
+    cfg, base = _config(work, "mesh", adaption="mesh", number_of_scans=3)
+    hdl32 = SensorSpec.from_yaml(HDL32_PATH)
+    seq, cap = _sequence(work)
     n_frames = len(seq) - 2                     # primaries 1 .. len - 2
     ply = os.path.join(work, "ply")
 
@@ -518,8 +646,8 @@ def _mesh_path(torch, work, kernels, tag):
     for key in ("IoU: ", "Acc: ", "MSE: ", "Took: "):
         check(text.count(key) == n_frames,
               f"mesh identity run printed {key!r} lines")
-    _, m_x, _ = _run_cli(work, base, "mesh_cross", "-t", hdl32_path)
-    _, m_p, _ = _run_cli(work, base, "mesh_ply", "-t", hdl32_path,
+    _, m_x, _ = _run_cli(work, base, "mesh_cross", "-t", HDL32_PATH)
+    _, m_p, _ = _run_cli(work, base, "mesh_ply", "-t", HDL32_PATH,
                          "--frames", "1", "--ply", ply)
     w1 = load_window(seq, cfg, 1, cap, dev)
     fused = {}
@@ -589,21 +717,14 @@ def _mesh_path(torch, work, kernels, tag):
     vs_card = eng.transfer_fast(w1)
     cpu_eng = TD.TransferEngine(HDL64, hdl32, cfg, fixed_bounds=True,
                                 device="cpu")
-    vs_cpu = cpu_eng.transfer_fast(load_window(seq, cfg, 1, cap, "cpu"))
-    lc, mc = vs_card.label.cpu(), vs_card.mask.cpu()
-    agree = float(((lc == vs_cpu.label) & (mc == vs_cpu.mask)).float().mean())
-    both = (lc == vs_cpu.label) & mc & vs_cpu.mask
-    rerr = (vs_card.range.cpu() - vs_cpu.range)[both].abs()
-    print(f"mesh card vs CPU (frame 1, HDL64->HDL32, fold): label/mask "
-          f"agreement {agree:.6f}, range error > 1e-3 m on "
-          f"{int((rerr > 1e-3).sum())} of {int(both.sum())} pixels, mask "
-          f"fill {float(mc.float().mean()):.4f}")
-    check(agree >= 0.999, "mesh card and CPU outputs disagree")
-    check(float(mc.float().mean()) > 0.3, "mesh virtual scan mostly empty")
+    _card_vs_cpu(vs_card, cpu_eng.transfer_fast(
+        load_window(seq, cfg, 1, cap, "cpu")), "mesh fold (frame 1)")
+    check(float(vs_card.mask.float().mean()) > 0.3,
+          "mesh virtual scan mostly empty")
 
     # ------------------------------------------------------ 4. timing
     wins = [load_window(seq, cfg, i, cap, dev) for i in range(1, 5)]
-    fold_ms = _cuda_ms(torch, lambda: [eng.transfer_fast(w)
+    fold_ms = cuda_ms(lambda: [eng.transfer_fast(w)
                                        for w in wins], 5) / len(wins)
     print(f"mesh transfer_fast (fold) HDL64->HDL32, 3 scans: "
           f"{fold_ms:.3f} ms/frame ({1e3 / fold_ms:.1f} scans/s) {tag}")
@@ -634,9 +755,9 @@ def _mesh_path(torch, work, kernels, tag):
     compact_state = spec.init_state(dev, compact=True)
     for st in (state, compact_state):
         for v_tab in (geom, None):
-            k_ms = _cuda_ms(torch, lambda: integrate_chain_cuda(
+            k_ms = cuda_ms(lambda: integrate_chain_cuda(
                 st, spec, *stacks, v_tab=v_tab, **kw), 10)
-            p_ms = _cuda_ms(torch, lambda: TS.integrate_chain(
+            p_ms = cuda_ms(lambda: TS.integrate_chain(
                 st, spec, *stacks, v_tab=v_tab, **kw), 2, warmup=1)
             name = "compact" if st is compact_state else "f32"
             print(f"chain S=3 {spec.dims} {name} table={v_tab is not None}:"
@@ -645,9 +766,9 @@ def _mesh_path(torch, work, kernels, tag):
                 kernels["tsdf_integrate_chain"].update(ms=k_ms,
                                                        plain_ms=p_ms)
     del compact_state
-    g_ms = _cuda_ms(torch, lambda: precompute_geometry_cuda(
+    g_ms = cuda_ms(lambda: precompute_geometry_cuda(
         spec, HDL64.fov_up, HDL64.fov_down, HDL64.H, device=dev), 10)
-    gp_ms = _cuda_ms(torch, lambda: TS.precompute_geometry(
+    gp_ms = cuda_ms(lambda: TS.precompute_geometry(
         spec, HDL64.fov_up, HDL64.fov_down, HDL64.H, device=dev), 2,
         warmup=1)
     kernels["tsdf_geometry"].update(ms=g_ms, plain_ms=gp_ms)
@@ -658,12 +779,246 @@ def _mesh_path(torch, work, kernels, tag):
     vol = TD.TransferEngine(HDL64, hdl32, cfg, fixed_bounds=True,
                             device=dev, mesh_attrs="volume",
                             compact_volume=True)
-    vol_ms = _cuda_ms(torch, lambda: [vol.transfer_fast(w)
+    vol_ms = cuda_ms(lambda: [vol.transfer_fast(w)
                                       for w in wins], 3) / len(wins)
     vv = vol.transfer_fast(wins[0])
     print(f"mesh transfer_fast (mesh_attrs=volume, compact, chain in the "
           f"frame): {vol_ms:.3f} ms/frame ({1e3 / vol_ms:.1f} scans/s), "
           f"mask fill {float(vv.mask.float().mean()):.4f} {tag}")
+    return counts
+
+
+def _cp_path(torch, work, tag):
+    """The cp adaption at the reference point on the dataset
+    ``work/kitti``; returns the launch counts of the path."""
+    from lidar_transfer_tpu_torch import _build
+    from lidar_transfer_tpu_torch.config import HDL64, SensorSpec
+    from lidar_transfer_tpu_torch.ops import projection as TP
+    from lidar_transfer_tpu_torch.pipeline import deform as TD
+    from lidar_transfer_tpu_torch.pipeline.multiscan import load_window
+
+    dev = torch.device("cuda")
+    cfg, base = _config(work, "cp", adaption="cp")
+    hdl32 = SensorSpec.from_yaml(HDL32_PATH)
+    seq, cap = _sequence(work)
+
+    _build.reset_launch_counts()
+    _, m_id, _ = _run_cli(work, base, "cp_identity")
+    _, m_x, _ = _run_cli(work, base, "cp_cross", "-t", HDL32_PATH)
+    w0 = load_window(seq, cfg, 0, cap, dev)
+    vs, _ = TD.TransferEngine(HDL64, HDL64, cfg, fixed_bounds=True,
+                              device=dev).transfer(w0)
+    src = TP.range_project(w0.points[0], w0.remissions[0], w0.labels[0],
+                           w0.valid[0], H=HDL64.H, W=HDL64.W,
+                           fov_up_deg=HDL64.fov_up,
+                           fov_down_deg=HDL64.fov_down)
+    eng = TD.TransferEngine(HDL64, hdl32, cfg, fixed_bounds=True, device=dev)
+    vs_card = eng.transfer(w0)[0]
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    print(f"launches on the cp path: {counts}")
+    for k in ("zbuffer", "confusion"):
+        check(counts[k] > 0, f"kernel {k} never launched on the cp path")
+
+    exact = all(torch.equal(a, b) for a, b in (
+        (vs.range, src.range), (vs.label, src.label),
+        (vs.remission, torch.clamp(src.remission, min=0.0)),
+        (vs.mask, src.mask)))
+    print(f"cp identity (frame 0): the source projection bit for bit: "
+          f"{exact}, mask fill {float(vs.mask.float().mean()):.4f}")
+    check(exact, "cp identity differs from the source projection")
+    for fm in m_id:
+        check((fm["iou"], fm["acc"], fm["mse"]) == (1.0, 1.0, 0.0),
+              f"cp identity metrics {fm}")
+    check(len(m_x) == 6 and min(fm["points_written"] for fm in m_x) > 0,
+          "cp cross frames")
+    try:
+        eng.fused_state()
+        check(False, "cp has no volume, but fused_state() returned one")
+    except RuntimeError:
+        pass
+    _, m_cpu, _ = _run_cli(work, base, "cp_cpu", "-t", HDL32_PATH,
+                           "--device", "cpu", "--frames", "1")
+    print(f"cp cli --device cpu frame 0: {m_cpu[0]['points_written']} "
+          f"points, card {m_x[0]['points_written']}")
+    check(abs(m_cpu[0]["points_written"] - m_x[0]["points_written"])
+          <= 1e-3 * hdl32.H * hdl32.W, "cp CPU and card point counts")
+    cpu = TD.TransferEngine(HDL64, hdl32, cfg, fixed_bounds=True,
+                            device="cpu")
+    _card_vs_cpu(vs_card, cpu.transfer(load_window(seq, cfg, 0, cap,
+                                                   "cpu"))[0], "cp (frame 0)")
+
+    wins = [load_window(seq, cfg, i, cap, dev) for i in range(6)]
+    ms = cuda_ms(lambda: [eng.transfer(w) for w in wins], 10) / len(wins)
+    print(f"cp transfer HDL64->HDL32: {ms:.3f} ms/frame "
+          f"({1e3 / ms:.1f} scans/s) {tag}")
+    _profile_frames(torch, eng, wins, ms, tag)
+    return counts
+
+
+def _catmesh_path(torch, work, tag):
+    """The catmesh adaption (splat engine) at the reference point, held
+    against the mergemesh run of ``_main_path``; returns the launch
+    counts of the path."""
+    from lidar_transfer_tpu_torch import _build
+    from lidar_transfer_tpu_torch.config import HDL64, SensorSpec
+    from lidar_transfer_tpu_torch.pipeline import deform as TD
+    from lidar_transfer_tpu_torch.pipeline.multiscan import load_window
+
+    dev = torch.device("cuda")
+    cfg, base = _config(work, "catmesh", adaption="catmesh")
+    mm_cfg, _ = _config(work, "mergemesh")
+    hdl32 = SensorSpec.from_yaml(HDL32_PATH)
+    seq, cap = _sequence(work)
+
+    _build.reset_launch_counts()
+    out, _, _ = _run_cli(work, base, "catmesh_cross", "-t", HDL32_PATH)
+    w0 = load_window(seq, cfg, 0, cap, dev)
+    eng = TD.TransferEngine(HDL64, hdl32, cfg, fixed_bounds=True, device=dev)
+    vs = eng.transfer_fast(w0)
+    state = eng.fused_state()
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    print(f"launches on the catmesh path: {counts}")
+    for k in ("zbuffer", "tsdf_integrate"):
+        check(counts[k] > 0, f"kernel {k} never launched on the catmesh "
+              "path")
+
+    _same_files(out, os.path.join(work, "cross"),
+                "catmesh CLI output differs from mergemesh's")
+    mm_eng = TD.TransferEngine(HDL64, hdl32, mm_cfg, fixed_bounds=True,
+                               device=dev)
+    same = (vs.adaption == "catmesh"
+            and _equal_scans(torch, vs, mm_eng.transfer_fast(w0)))
+    print(f"catmesh HDL64->HDL32: CLI files == mergemesh's (6 frames); "
+          f"frame 0 scan == mergemesh's bit for bit: {same}; fused volume "
+          f"{int((state.tsdf < 1).sum())} voxels with tsdf < 1")
+    check(same, "catmesh scan differs from mergemesh's")
+    del state
+
+    # the same body as mergemesh: both timed here, interleaved
+    wins = [load_window(seq, cfg, i, cap, dev) for i in range(6)]
+    ms = {"mergemesh": [], "catmesh": []}
+    for name, e in (("mergemesh", mm_eng), ("catmesh", eng),
+                    ("catmesh", eng), ("mergemesh", mm_eng)):
+        ms[name].append(cuda_ms(lambda: [e.transfer_fast(w) for w in wins],
+                                20) / len(wins))
+    print("catmesh transfer_fast HDL64->HDL32: " + "; ".join(
+        f"{k} {' / '.join(f'{v:.3f}' for v in vs)} ms/frame"
+        for k, vs in ms.items()) + f" (timed mergemesh, catmesh, catmesh, "
+        f"mergemesh) {tag}")
+    _profile_frames(torch, eng, wins, min(ms["catmesh"]), tag)
+    return counts
+
+
+def _upsample_path(torch, work, tag):
+    """A target denser than the source, HDL64 -> HDL64x2 (128 beams over
+    the same fov, as ``bench.py --upsample``), per frame and streamed, on
+    the dataset ``work/kitti_up``, which it writes; returns the launch
+    counts of the path."""
+    import dataclasses
+
+    import yaml
+
+    from lidar_transfer_tpu_torch import _build
+    from lidar_transfer_tpu_torch.config import HDL64, SensorSpec
+    from lidar_transfer_tpu_torch.datasets import synthetic
+    from lidar_transfer_tpu_torch.pipeline import deform as TD
+    from lidar_transfer_tpu_torch.pipeline.multiscan import (load_window,
+                                                             stack_windows)
+
+    dev = torch.device("cuda")
+    up = SensorSpec(name="HDL64x2", beams=128, fov_up=HDL64.fov_up,
+                    fov_down=HDL64.fov_down,
+                    angle_res_hor=HDL64.angle_res_hor)
+    up_path = os.path.join(work, "hdl64x2.yaml")
+    with open(up_path, "w") as f:
+        yaml.safe_dump(up.to_dict(), f)
+    # the source's beams lie 0.75 deg inside its fov, as a real sensor's
+    # do: a beam on a row edge of the source or the target image (the fov
+    # limits, and beams 7 and 56 with 0.5 deg) leaves whole rows to the
+    # last ulp of an asin, which the card and the CPU round apart (ROADMAP.md
+    # section 3); with 0.75 every beam lies >= 0.034 target rows from an
+    # edge. config.yaml stays HDL64's
+    ds = os.path.join(work, "kitti_up")
+    synthetic.write_kitti_dataset(
+        ds, synthetic.Scene.default(), dataclasses.replace(
+            HDL64, fov_up=HDL64.fov_up - 0.75,
+            fov_down=HDL64.fov_down + 0.75), n_scans=6)
+    with open(os.path.join(ds, "config.yaml"), "w") as f:
+        yaml.safe_dump(HDL64.to_dict(), f)
+    cfg, base = _config(work, "upsample", dataset="kitti_up")
+    seq, cap = _sequence(work, "kitti_up")
+
+    _build.reset_launch_counts()
+    out_f, m_f, _ = _run_cli(work, base, "up_frames", "-t", up_path)
+    out_s, _, _ = _run_cli(work, base, "up_stream", "-t", up_path,
+                           "--stream", "4")
+    w0 = load_window(seq, cfg, 0, cap, dev)
+    eng = TD.TransferEngine(HDL64, up, cfg, fixed_bounds=True, device=dev)
+    vs_card = eng.transfer_fast(w0)
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    print(f"launches on the upsampling path: {counts}")
+    check(counts["zbuffer"] > 0, "kernel zbuffer never launched on the "
+          "upsampling path")
+
+    _same_files(out_f, out_s, "--stream 4 upsampling output differs from "
+                "per-frame")
+    check(len(m_f) == 6, f"upsampling: {len(m_f)} frames")
+    off = TD.TransferEngine(HDL64, up, cfg, fixed_bounds=True, device=dev,
+                            upsample_interp=False).transfer_fast(w0)
+    hit = float(vs_card.mask.float().mean())
+    bare = float(off.mask.float().mean())
+    rows = float(vs_card.mask.any(dim=1).float().mean())
+    print(f"upsampling HDL64->HDL64x2 (frame 0): hit rate {hit:.4f} "
+          f"({int(vs_card.mask.sum())} of {up.H * up.W} pixels), without "
+          f"the chords {bare:.4f}; rows with a return {rows:.4f}; chords "
+          f"m_v {eng._interp_mv}, m_u {eng._interp_mu}, v_span "
+          f"{eng._interp_vspan}; --stream 4 == per-frame (all files)")
+    check(eng._interp_active and hit > 1.5 * bare,
+          "the chords add no coverage")
+    cpu = TD.TransferEngine(HDL64, up, cfg, fixed_bounds=True, device="cpu")
+    _card_vs_cpu(vs_card, cpu.transfer_fast(load_window(seq, cfg, 0, cap,
+                                                        "cpu")),
+                 "upsampling (frame 0)")
+
+    wins = [load_window(seq, cfg, i, cap, dev) for i in range(6)]
+    ms = cuda_ms(lambda: [eng.transfer_fast(w) for w in wins], 10) / len(wins)
+    stacked = stack_windows(wins[:4])
+    s_ms = cuda_ms(lambda: eng.transfer_stream(stacked), 10)
+    print(f"upsampling transfer_fast HDL64->HDL64x2: {ms:.3f} ms/frame "
+          f"({1e3 / ms:.1f} scans/s); transfer_stream 4 frames {s_ms:.3f} "
+          f"ms ({4e3 / s_ms:.1f} scans/s) {tag}")
+    _profile_frames(torch, eng, wins, ms, tag)
+    return counts
+
+
+def _probe_path(torch, kernels, tag):
+    """The probes' rows at 1024x1024x256 (``probes.run``, what ``python
+    -m lidar_transfer_tpu_torch.probes all`` prints); returns the launch
+    counts of the path. Each probe kernel's JSON row takes the time of the
+    row its kernel was written for: ``full`` at BX 2 with three outputs,
+    ``precols``, and ``alias_any`` (three outputs in place)."""
+    from lidar_transfer_tpu_torch import _build, probes
+
+    _build.reset_launch_counts()
+    t = time.perf_counter()
+    rows = probes.run(tag=tag)
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    print(f"probe rows: {len(rows)} in {time.perf_counter() - t:.1f} s; "
+          f"launches on the probe path: {counts}")
+    picks = {"probe_parts": ("parts", "full BX2 out x3"),
+             "probe_ablate": ("ablate", "precols"),
+             "probe_write": ("alias", "alias_any")}
+    for name, (probe, row) in picks.items():
+        check(counts[name] > 0, f"kernel {name} never launched on the "
+              "probe path")
+        r = next(r for r in rows if (r["probe"], r["row"]) == (probe, row))
+        k = kernels[name]
+        k.update(ms=r["ms"], plain_ms=r["plain_ms"],
+                 max_abs_err=max(k["max_abs_err"], r["max_abs_err"]))
     return counts
 
 

@@ -7,13 +7,20 @@ this package imports ``torch`` and never ``jax``, mirrors its module names
 ``pipeline/deform.py``, ...), and reuses its jax-free modules
 (``config``, ``datasets``, ``utils.runtime``, ``utils.prefetch``).
 
-Ported so far: the ``lt-transfer`` main path (mergemesh adaption, splat
-synthesis, deferred TSDF volume) and its metrics. Its three CUDA kernels
-live in ``csrc/`` and build with ``nvcc`` at first use (``_build.py``):
+Ported so far: the ``lt-transfer`` CLI with the cp, mergemesh, mesh and
+catmesh adaptions (splat synthesis, targets denser than the source
+included), the deferred and materialised TSDF volume, PLY export and the
+metrics, and the integrate's measurement probes (``probes/``). The CUDA
+kernels live in ``csrc/`` and build with ``nvcc`` at first use
+(``_build.py``):
 
   - the z-buffer (``ops/projection.zbuffer_winners``),
   - the confusion histogram (``metrics/confusion.confusion_matrix``),
-  - the TSDF integrate (``ops/tsdf_cuda.integrate_cuda``).
+  - the TSDF integrate and its S-scan chain
+    (``ops/tsdf_cuda.integrate_cuda``, ``integrate_chain_cuda``),
+  - the geometry table (``ops/tsdf_cuda.precompute_geometry_cuda``),
+  - the probes (``probes/parts.py``, ``probes/ablate.py``,
+    ``probes/write.py``).
 
 Each has a plain PyTorch version beside it, which a CPU tensor takes.
 """

@@ -49,11 +49,18 @@ SIGNATURES = {
                                 _I, _I, _I, _I, _P),
     "lt_tsdf_geometry": (_P, _I, _I, _I, _I,
                          _F, _F, _F, _F, _F, _F, _F, _F, _P),
+    "lt_probe_parts": (_P, _P, _P, _P, _P, _P,
+                       _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P),
+    "lt_probe_ablate": (_P, _P, _P, _P, _P, _P, _P,
+                        _I, _I, _I, _I, _I, _I, _F, _F, _F, _P),
+    "lt_probe_write": (_P, _P, _P, _I, _I, _I, _I,
+                       _L, _L, _L, _L, _L, _I, _P),
 }
 
 #: launches per kernel since the last reset_launch_counts()
 _launches = {"zbuffer": 0, "confusion": 0, "tsdf_integrate": 0,
-             "tsdf_integrate_chain": 0, "tsdf_geometry": 0}
+             "tsdf_integrate_chain": 0, "tsdf_geometry": 0,
+             "probe_parts": 0, "probe_ablate": 0, "probe_write": 0}
 _lib: ctypes.CDLL | None = None
 _lock = threading.Lock()
 

@@ -1,8 +1,9 @@
 """Command-line entry point for batch scan transfer (PyTorch port).
 
 Counterpart of ``lt-transfer`` (``lidar_transfer_tpu/cli.py``) for the
-mergemesh and mesh adaptions (``adaption`` and ``number_of_scans`` of the
-config) with splat synthesis:
+cp, mergemesh, mesh and catmesh adaptions (``adaption`` and
+``number_of_scans`` of the config) with splat synthesis, to any target,
+denser than the source or not:
 
   python -m lidar_transfer_tpu_torch.cli -d DATASET [-c CFG.yaml] [-s SEQ]
       [-t TARGET.yaml] [-o OFFSET] [-p OUT] [-b] [-w] [--one_scan]
@@ -12,9 +13,11 @@ config) with splat synthesis:
 It prints the same "IoU:", "Acc:", "MSE: " and "Took: ...s" lines (the
 metric lines when source and target image dims agree) and writes the
 per-frame metrics to --metrics-json. ``--ply DIR`` writes each frame's
-fused volume as a PLY mesh coloured by label (``DIR/<index>.ply``) and
-records its triangle count; it needs the per-frame path, so it turns
-``--stream`` off. It runs on the card unless
+fused volume as a PLY mesh coloured by label (``DIR/<index>.ply``, mesh
+and mergemesh only) and records its triangle count; it needs the
+per-frame path, so it turns ``--stream`` off. Per frame it runs
+``TransferEngine.transfer_fast``, which for cp is ``transfer``, cp's
+exact-identity path. It runs on the card unless
 ``--device cpu`` is given; without a CUDA device it refuses to start.
 """
 
@@ -223,7 +226,7 @@ def main(argv=None) -> int:
                 with timer.span("write", 1):
                     frame_metrics["points_written"] = write_virtual_scan(
                         out_path, i, vs)
-            if args.ply:
+            if args.ply and cfg.adaption in ("mesh", "mergemesh"):
                 os.makedirs(args.ply, exist_ok=True)
                 frame_metrics["triangles"] = eng.export_mesh(
                     os.path.join(args.ply, f"{i:06d}.ply"), colorize=lut)

@@ -13,13 +13,12 @@ Counterpart of ``lidar_transfer_tpu/ops/splat.py``:
      - ``_band_samples`` (``attrs="volume"``): the first step whose voxel
        of the materialised volume lies in the band (tsdf <= 0);
      none of them reads more than K*HW voxels, and the first two read none;
-  2. the candidates are z-buffered into the TARGET image
+  2. for a target denser than the source (``interp``), chord candidates
+     between adjacent connected source returns (``_interp_candidates``);
+  3. the candidates are z-buffered into the TARGET image
      (``_target_assemble``, kernel A on the card) and the winner's stored
      tsdf moves its depth onto the zero crossing:
      ``t_surface = t_sample + tsdf * trunc_margin``.
-
-The upsampling chords (``interp``) are not ported yet (ROADMAP.md,
-queue 1).
 """
 
 from __future__ import annotations
@@ -238,6 +237,76 @@ def _band_samples(tsdf, label, rem, rng_flat, pts_flat, valid_flat,
             found)
 
 
+def _interp_candidates(rng_flat, pts_flat, valid_flat, label_flat,
+                       rem_flat, vol_origin, active_f, thresh, tan_min, *,
+                       H: int, W: int, m_v: int, m_u: int, voxel_size: float,
+                       v_span: int = 1):
+    """Chord-interpolated candidates between adjacent source returns (the
+    splat's counterpart of the reference's mesh interpolation, which hits
+    triangle interiors between source beams).
+
+    ``m_v`` candidates along the 3-D chord between vertically adjacent
+    valid pixels (and, with ``v_span`` > 1, ((m_v+1)*d - 1) between rows
+    d = 2..v_span apart, for snapped beam tables that leave empty rows),
+    ``m_u`` between horizontally adjacent ones (the yaw wraps around), and
+    with both, min(m_v, m_u) along each 2x2 cell's diagonal, in that order.
+    Two returns are connected when their bands overlap
+    (|r_a - r_b| <= ``thresh``) or the chord meets the far ray at a
+    grazing angle beta with tan(beta) >= ``tan_min``. A candidate lies ON
+    the surface (tsdf 0), carries the nearer-half endpoint's label, a
+    lerped remission, and must lie inside the active volume.
+    Args: flat (H*W,) images in row-major order, points (H*W, 3);
+    ``vol_origin`` / ``active_f`` (3,) f32 tensors, ``thresh`` /
+    ``tan_min`` f32 0-dim tensors. Returns the candidate tuple (pos, depth
+    (unread, 0), tsdf, label i32, rem, valid).
+    """
+    img_r = rng_flat.reshape(H, W)
+    img_p = pts_flat.reshape(H, W, 3)
+    img_v = valid_flat.reshape(H, W)
+    img_l = label_flat.reshape(H, W).to(torch.int32)
+    img_e = rem_flat.reshape(H, W)
+    vox = torch.tensor(np.float32(voxel_size), device=rng_flat.device)
+    parts = []
+
+    def emit(sl_a, sl_b, m):
+        ra, rb = sl_a(img_r), sl_b(img_r)
+        pa, pb = sl_a(img_p), sl_b(img_p)
+        # band overlap OR grazing-surface angle
+        sa = torch.clamp(ra, min=1e-6)[..., None]
+        sb = torch.clamp(rb, min=1e-6)[..., None]
+        cosd = torch.clamp(((pa / sa) * (pb / sb)).sum(dim=-1), -1.0, 1.0)
+        sind = torch.sqrt(torch.clamp(1.0 - cosd * cosd, min=0.0))
+        rn = torch.minimum(ra, rb)
+        rf = torch.maximum(ra, rb)
+        den = rf - rn * cosd
+        beta_ok = (den <= 0.0) | (rn * sind >= tan_min * den)
+        ok = (sl_a(img_v) & sl_b(img_v)
+              & (beta_ok | (torch.abs(ra - rb) <= thresh))).reshape(-1)
+        la, lb = sl_a(img_l).reshape(-1), sl_b(img_l).reshape(-1)
+        ea, eb = sl_a(img_e).reshape(-1), sl_b(img_e).reshape(-1)
+        for j in range(1, m + 1):
+            f = j / (m + 1)
+            pos = (pa + f * (pb - pa)).reshape(-1, 3)
+            gi = torch.round((pos - vol_origin[None, :]) / vox)
+            inside = ((gi >= 0) & (gi < active_f[None, :])).all(dim=1)
+            z = torch.zeros(pos.shape[:1], dtype=pos.dtype, device=pos.device)
+            parts.append((pos, z, z, la if f <= 0.5 else lb,
+                          ea + f * (eb - ea), ok & inside))
+
+    roll = lambda a: torch.roll(a, -1, dims=1)  # noqa: E731
+    if m_v:
+        for d in range(1, v_span + 1):
+            emit(lambda a, d=d: a[:-d], lambda a, d=d: a[d:],
+                 (m_v + 1) * d - 1)
+    if m_u:
+        emit(lambda a: a, roll, m_u)
+    if m_v and m_u:
+        # diagonal interior pixels of a 2x2 source cell get neither a
+        # vertical nor a horizontal chord
+        emit(lambda a: a[:-1], lambda a: roll(a)[1:], min(m_v, m_u))
+    return tuple(torch.cat([p[i] for p in parts]) for i in range(6))
+
+
 def assemble_candidate_parts(parts, *, fov_up_deg, fov_down_deg,
                              beam_angles, target_H, target_W,
                              trunc: float):
@@ -266,6 +335,11 @@ def splat_synthesize(state, spec, sources, *, target_H: int,
     ``attrs``: "image", "fold", "volume" (see the module docstring), or
     "auto": "image" for one source, else "volume". ``label_probe``: the
     volume path's band test also needs label > 0 (``_band_samples``).
+    ``interp``: None, or (H, W, m_v, m_u, tan_min[, v_span]) for a target
+    denser than the source: the source images' dims (sources in row-major
+    image order), the interior chord counts, the connectivity angle's
+    tangent and the row gap chords bridge (``_interp_candidates``; their
+    candidates follow every source's band candidates).
     Returns (range, label, remission, endpoints (H,W,3), mask).
     """
     if attrs == "auto":
@@ -273,10 +347,6 @@ def splat_synthesize(state, spec, sources, *, target_H: int,
     if attrs not in ("image", "fold", "volume"):
         raise ValueError(f"unknown attrs {attrs!r} (expected 'auto', "
                          "'image', 'fold' or 'volume')")
-    if interp is not None:
-        raise NotImplementedError(
-            "upsampling chords (interp) are not ported yet (ROADMAP.md, "
-            "queue 1)")
     device = sources[0][0].device
     vol_origin = torch.as_tensor(np.asarray(vol_origin, np.float32),
                                  device=device)
@@ -298,6 +368,16 @@ def splat_synthesize(state, spec, sources, *, target_H: int,
                                vol_origin, active_f,
                                label_probe=label_probe, **kw)
                  for (r, p, v, _, _) in sources]
+    if interp is not None:
+        iH, iW, m_v, m_u, tan_min, *rest = interp
+        if m_v or m_u:
+            f32 = lambda v: torch.tensor(np.float32(v), device=device)  # noqa
+            parts += [_interp_candidates(
+                r, p, v, lf, rf, vol_origin, active_f,
+                f32(spec.trunc_margin), f32(tan_min), H=iH, W=iW, m_v=m_v,
+                m_u=m_u, voxel_size=spec.voxel_size,
+                v_span=rest[0] if rest else 1)
+                for (r, p, v, lf, rf) in sources]
     return assemble_candidate_parts(
         parts, fov_up_deg=fov_up_deg, fov_down_deg=fov_down_deg,
         beam_angles=beam_angles, target_H=target_H, target_W=target_W,

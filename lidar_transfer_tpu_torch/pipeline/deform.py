@@ -1,8 +1,10 @@
-"""Transfer engine: the mergemesh and mesh adaptions with splat synthesis
-(PyTorch).
+"""Transfer engine: the cp, mergemesh, mesh and catmesh adaptions with
+splat synthesis (PyTorch).
 
 Counterpart of ``lidar_transfer_tpu/pipeline/deform.py``:
 
+  cp        — closest point: the merged cloud z-buffered straight into the
+              TARGET image (kernel A) and back-projected; no volume.
   mergemesh — the main path: the merged cloud of a window is z-buffered
               into a source-dims image at the TARGET field of view
               (kernel A), every winner spawns one truncation-band
@@ -20,16 +22,25 @@ Counterpart of ``lidar_transfer_tpu/pipeline/deform.py``:
               (kernel C's chain mode); with ``"volume"`` the chain runs in
               the frame and the splat probes the volume. Under fixed bounds
               the chain reads the placement's geometry table (kernel D).
+  catmesh   — on its splat engine, the mergemesh body with
+              ``adaption="catmesh"`` on the output: every candidate carries
+              its own source pixel's label, so labels never bleed across
+              category seams, which is what per-category meshing is for.
+
+A target denser than the source (vertically or horizontally) adds chord
+candidates between adjacent connected source returns
+(``ops/splat._interp_candidates``); such frames take the classic deferred
+mergemesh body, as the JAX engine does by default.
 
 Not ported yet (ROADMAP.md, queue 1), and refused with
-``NotImplementedError`` at construction: the cp and catmesh adaptions,
-raymarch synthesis, and targets denser than the source (their upsampling
-chords).
+``NotImplementedError`` at construction: raymarch synthesis and catmesh's
+``"oracle"`` engine (per-category marching and a mesh raycast).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import NamedTuple
 
 import numpy as np
@@ -96,17 +107,28 @@ class TransferEngine:
     mesh_attrs: str = "fold"
     # volume probe: every band sample must also carry label > 0
     band_label_probe: bool = False
+    # catmesh engine: "splat" (the mergemesh body) or "oracle" (per-category
+    # iso-surfaces and a mesh raycast; not ported yet)
+    catmesh_engine: str = "splat"
+    # chord candidates for a denser target: "auto"/True when the target is
+    # denser, False never (interior target rows/columns stay empty)
+    upsample_interp: bool | str = "auto"
+    # connectivity angle (degrees) of two adjacent returns' chord
+    interp_angle_deg: float = 3.0
 
     def __post_init__(self):
-        if self.cfg.adaption not in ("mergemesh", "mesh"):
-            raise NotImplementedError(
-                f"adaption {self.cfg.adaption!r} {_NOT_PORTED}")
         if self.synthesis != "splat":
             raise NotImplementedError(
                 f"synthesis {self.synthesis!r} {_NOT_PORTED}")
         if self.mesh_attrs not in ("fold", "volume"):
             raise ValueError(f"mesh_attrs must be 'fold' or 'volume': "
                              f"{self.mesh_attrs!r}")
+        if self.catmesh_engine not in ("splat", "oracle"):
+            raise ValueError(f"catmesh_engine must be 'splat' or 'oracle': "
+                             f"{self.catmesh_engine!r}")
+        if self.cfg.adaption == "catmesh" and self.catmesh_engine == "oracle":
+            raise NotImplementedError(
+                f"catmesh_engine 'oracle' {_NOT_PORTED}")
         self.device = torch.device(self.device)
         t = self.target
         ba = (np.asarray(t.beam_angles) if t.beam_angles is not None
@@ -122,12 +144,9 @@ class TransferEngine:
         self.vol_spec = TS.VolumeSpec(
             origin=tuple(float(v) for v in vb[:, 0]),
             voxel_size=float(self.cfg.voxel_size), dims=self.vol_dims)
-        self._interp_mv, self._interp_mu = self._interp_counts(ba, sba)
-        if self._interp_mv or self._interp_mu:
-            raise NotImplementedError(
-                f"target {t.name} ({t.H}x{t.W}) is denser than source "
-                f"{self.source.name} ({self.source.H}x{self.source.W}): "
-                f"upsampling chords {_NOT_PORTED}")
+        self._interp_mv, self._interp_mu = (
+            self._interp_counts(ba, sba) if self.upsample_interp else (0, 0))
+        self._interp_vspan = self._interp_span(sba)
         self._geoms: dict = {}
         self._vol_state: TS.TSDFState | None = None
         self._pending_window: ScanWindow | None = None
@@ -168,6 +187,35 @@ class TransferEngine:
             src_pitch / max(tgt_pitch, 1e-9) - 0.15)) - 1))
         cols = min(8, max(0, int(np.ceil(t.W / s.W - 0.15)) - 1))
         return rows, cols
+
+    def _interp_span(self, sba) -> int:
+        """Rows a vertical chord may bridge: with a source beam table the
+        projection snaps pitch to beams, and consecutive beams can land
+        more than one row apart. Capped at 4 (each level adds a full
+        candidate set, and a wider gap asks for more than 4x the source's
+        beam density), with a warning."""
+        if self._interp_mv == 0 or sba is None or len(sba) < 2:
+            return 1
+        t, s = self.target, self.source
+        fu, fd = ((s.fov_up, s.fov_down) if self.cfg.adaption == "mesh"
+                  else (t.fov_up, t.fov_down))
+        fov = abs(np.radians(fu)) + abs(np.radians(fd))
+        v = 1.0 - (np.sort(sba) + abs(np.radians(fd))) / fov
+        occ = np.unique(np.clip(np.floor(v * s.H), 0, s.H - 1).astype(int))
+        if len(occ) < 2:
+            return 1
+        max_gap = int(np.diff(occ).max())
+        if max_gap > 4:
+            warnings.warn(
+                f"source beam table leaves occupied-row gaps up to "
+                f"{max_gap} rows but chord interpolation bridges at most 4 "
+                f"— target rows inside wider gaps will stay empty (raise "
+                f"source H or thin the target density)", stacklevel=4)
+        return min(4, max_gap)
+
+    @property
+    def _interp_active(self) -> bool:
+        return self._interp_mv > 0 or self._interp_mu > 0
 
     # ------------------------------------------------------ volume state
     def _take_state(self) -> TS.TSDFState:
@@ -250,13 +298,19 @@ class TransferEngine:
                          ri.label.reshape(-1),
                          torch.clamp(ri.remission, min=0.0).reshape(-1)))
         t = self.target
+        interp = None
+        if self._interp_active:
+            sH, sW = sources[0][0].range.shape
+            interp = (sH, sW, self._interp_mv, self._interp_mu,
+                      float(np.tan(np.radians(self.interp_angle_deg))),
+                      self._interp_vspan)
         rng, lbl, rem, ends, mask = splat_synthesize(
             state, self.vol_spec, srcs, target_H=t.H, target_W=t.W,
             fov_up_deg=t.fov_up, fov_down_deg=t.fov_down,
             vol_origin=origin, active_dims=active,
             beam_angles=self.t_beam_angles,
             attrs="auto" if len(sources) == 1 else self.mesh_attrs,
-            label_probe=self.band_label_probe)
+            label_probe=self.band_label_probe, interp=interp)
         return VirtualScan(range=rng, label=lbl, remission=rem, points=ends,
                            mask=mask, adaption=self.cfg.adaption)
 
@@ -283,6 +337,29 @@ class TransferEngine:
         """Record a frame whose volume was integrated in the transfer."""
         self._defer(origin=origin)
         self._fused_now(state, origin, sources)
+
+    # ---------------------------------------------------------------- cp
+    def cp(self, window: ScanWindow) -> tuple[VirtualScan, P.RangeImage]:
+        """Closest-point adaption: the merged cloud projected at the TARGET
+        dims and fov (kernel A) and back-projected; no volume, so
+        ``fused_state()`` afterwards raises. An identity transfer
+        reproduces the source projection bit for bit. (The JAX engine's
+        one-program ``_cp_core_fast`` is this body: PyTorch runs it
+        eagerly, with no fusion to re-round the pixel coordinates.)"""
+        pts, rem, lbl, valid = merge_window(window)
+        t = self.target
+        ri = P.range_project(
+            pts, rem, lbl, valid, H=t.H, W=t.W, fov_up_deg=t.fov_up,
+            fov_down_deg=t.fov_down, beam_angles=self.t_beam_angles)
+        back = P.reverse_project(ri, fov_up_deg=t.fov_up,
+                                 fov_down_deg=t.fov_down,
+                                 preserve_float=self.cfg.preserve_float)
+        self._defer()
+        vs = VirtualScan(range=ri.range, label=ri.label,
+                         remission=torch.clamp(ri.remission, min=0.0),
+                         points=back.reshape(t.H, t.W, 3), mask=ri.mask,
+                         adaption="cp")
+        return vs, ri
 
     # --------------------------------------------------------- mergemesh
     def _merged_image(self, window: ScanWindow):
@@ -416,16 +493,25 @@ class TransferEngine:
     # ---------------------------------------------------------- dispatch
     def transfer(self, window: ScanWindow
                  ) -> tuple[VirtualScan, P.RangeImage]:
-        if self.cfg.adaption == "mergemesh":
+        adaption = self.cfg.adaption
+        if adaption == "cp":
+            return self.cp(window)
+        if adaption == "mergemesh":
             return self.mergemesh(window)
-        if self.cfg.adaption == "mesh":
+        if adaption == "mesh":
             return self.mesh(window)
-        raise ValueError(f"adaption {self.cfg.adaption!r}")
+        if adaption == "catmesh":
+            vs, ri = self.mergemesh(window)
+            return vs._replace(adaption="catmesh"), ri
+        raise ValueError(f"adaption {adaption!r}")
 
     def transfer_fast(self, window: ScanWindow) -> VirtualScan:
-        """Transfer one window without its range image; for mergemesh the
-        volume stays deferred (see :meth:`fused_state`)."""
-        if self.cfg.adaption != "mergemesh":
+        """Transfer one window without its range image; for mergemesh and
+        catmesh the volume stays deferred (see :meth:`fused_state`). A
+        denser target takes the classic deferred body (``transfer``),
+        whose range image the chords are drawn in."""
+        if (self.cfg.adaption not in ("mergemesh", "catmesh")
+                or self._interp_active):
             return self.transfer(window)[0]
         (rng, lbl, rem, ends, mask), origin = \
             self._mergemesh_core_fast(window)
@@ -443,8 +529,10 @@ class TransferEngine:
         """
         outs = [self.transfer_fast(windows.frame(i))
                 for i in range(windows.points.shape[0])]
-        if self._pending_window is not None:
+        if (self._pending_window is not None
+                or self._pending_fusion is not None):
             self._pending_window = None
+            self._pending_fusion = None
             self._pending_origin = None
             self._stream_windows = windows
         return VirtualScan(*(torch.stack([o[k] for o in outs])

@@ -56,7 +56,8 @@ def test_imports_leave_jax_out():
 def test_build_needs_no_nvcc_until_a_launch(tmp_path, monkeypatch):
     """_build imports without nvcc; a build without nvcc raises."""
     names = sorted(p.name for p in _build.sources())
-    assert names == ["confusion.cu", "errors.cu", "tsdf_common.cuh",
+    assert names == ["confusion.cu", "errors.cu", "probe_ablate.cu",
+                     "probe_parts.cu", "probe_write.cu", "tsdf_common.cuh",
                      "tsdf_geometry.cu", "tsdf_integrate.cu", "zbuffer.cu"]
     assert _build.library_path().name.startswith("_ltkernels-")
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
@@ -102,24 +103,29 @@ def test_cpu_calls_launch_no_kernel(small_spec):
     assert len(mesh._geoms) == 1
     assert _build.launch_counts() == {
         "zbuffer": 0, "confusion": 0, "tsdf_integrate": 0,
-        "tsdf_integrate_chain": 0, "tsdf_geometry": 0}
+        "tsdf_integrate_chain": 0, "tsdf_geometry": 0, "probe_parts": 0,
+        "probe_ablate": 0, "probe_write": 0}
 
 
-@pytest.mark.parametrize("case", ["cp", "catmesh", "raymarch",
-                                  "upsample"])
+@pytest.mark.parametrize("case", ["raymarch", "catmesh_oracle"])
 def test_engine_refuses_unported(case):
-    """Unported adaptions, synthesis and upsampling targets raise
-    NotImplementedError instead of routing elsewhere."""
-    cfg, kw, target = CFG, {}, HDL32
-    if case in ("cp", "catmesh"):
-        cfg = TransferConfig(adaption=case)
-    elif case == "raymarch":
+    """Raymarch synthesis and catmesh's oracle engine raise
+    NotImplementedError instead of routing elsewhere; the cp and catmesh
+    adaptions and a denser target construct."""
+    kw, cfg = {}, CFG
+    if case == "raymarch":
         kw = dict(synthesis="raymarch")
     else:
-        target = SensorSpec(name="dense", beams=128, fov_up=3.0,
-                            fov_down=-25.0, angle_res_hor=360.0 / 2048.0)
+        cfg = TransferConfig(adaption="catmesh")
+        kw = dict(catmesh_engine="oracle")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TD.TransferEngine(HDL64, target, cfg, device="cpu", **kw)
+        TD.TransferEngine(HDL64, HDL32, cfg, device="cpu", **kw)
+    dense = SensorSpec(name="dense", beams=128, fov_up=3.0, fov_down=-25.0,
+                       angle_res_hor=360.0 / 2048.0)
+    for adaption, target in (("cp", HDL32), ("catmesh", HDL32),
+                             ("mergemesh", dense)):
+        TD.TransferEngine(HDL64, target, TransferConfig(adaption=adaption),
+                          device="cpu")
 
 
 def test_wrappers_refuse_other_devices():

@@ -125,18 +125,33 @@ def test_target_assemble_matches(sources, small_spec, target):
     np.testing.assert_allclose(t[3][won], j[3][won], atol=1e-5)
 
 
-def test_splat_synthesize_refuses_unported_paths(sources):
-    """Upsampling chords (interp) raise, pointing at the ROADMAP, instead
-    of running another path; an unknown attrs raises ValueError."""
+def test_splat_synthesize_refuses_unported_paths(sources, mid_spec):
+    """An unknown attrs raises ValueError; the upsampling chords (interp)
+    run: a target with twice the source's rows over its fov fills every
+    row and far more pixels than the band candidates alone, and equals
+    the JAX splat_synthesize with the same interp on >= 99.9 % of
+    pixels."""
     srcs = [tuple(torch.from_numpy(a) for a in sources)]
     spec = TS.VolumeSpec(tuple(ORIGIN.tolist()), VOX, (128, 128, 32))
     kw = dict(target_H=16, target_W=256, fov_up_deg=8.0,
               fov_down_deg=-22.0, vol_origin=ORIGIN)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TSp.splat_synthesize(None, spec, srcs, interp=(32, 512, 1, 0, 0.05),
-                             **kw)
     with pytest.raises(ValueError, match="attrs"):
         TSp.splat_synthesize(None, spec, srcs, attrs="Fold", **kw)
     rng, lbl, rem, ends, mask = TSp.splat_synthesize(None, spec, srcs, **kw)
     assert rng.shape == (16, 256) and ends.shape == (16, 256, 3)
     assert bool(mask.any()) and bool(torch.isfinite(ends).all())
+    H, W = mid_spec.H, mid_spec.W
+    up = dict(kw, target_H=2 * H, target_W=W, fov_up_deg=mid_spec.fov_up,
+              fov_down_deg=mid_spec.fov_down)
+    interp = (H, W, 1, 0, float(np.tan(np.radians(3.0))), 1)
+    base = TSp.splat_synthesize(None, spec, srcs, **up)[4]
+    t = TSp.splat_synthesize(None, spec, srcs, interp=interp, **up)
+    assert t[4].float().mean() > 1.7 * base.float().mean()
+    assert bool(t[4][2:-2].any(dim=1).all())
+    jspec = JSp.VolumeSpec(tuple(ORIGIN.tolist()), VOX, (128, 128, 32))
+    j = JSp.splat_synthesize(None, jspec,
+                             [tuple(jnp.asarray(a) for a in sources)],
+                             interp=interp, **up)
+    agree = (np.asarray(j[4]) == t[4].numpy()) & (np.asarray(j[1])
+                                                  == t[1].numpy())
+    assert agree.mean() >= 1 - 1e-3
