@@ -5,14 +5,22 @@
 
 1. Builds the eight CUDA kernels from ``lidar_transfer_tpu_torch/csrc`` (one
    nvcc per source, in parallel) and holds each against its plain PyTorch
-   version on the card: the z-buffer bit-exact, the confusion counts exact,
-   the TSDF integrate (float32 and compact state, with and without the
-   geometry table) and its S-scan chain (S=3, 256x256x208) with label and
-   weight equal on >= 1 - 1e-6 of voxels, float32 tsdf/rem within 1e-5 and
-   compact ones within one bf16 ulp, the geometry table's rows equal on
-   >= 1 - 1e-6 of voxels; the three probe kernels at 64x256x256 in every
-   variant, int16 labels exact and bf16 outputs within one bf16 ulp, the
-   writes exact.
+   version on the card: the z-buffer bit-exact (without a workspace, and
+   with one workspace through a sequence of image sizes and back, N = 0,
+   all points invalid, all points in one pixel with equal keys), the
+   confusion counts exact, the TSDF integrate (float32 and compact state,
+   with and without the geometry table) and its S-scan chain (S=3,
+   256x256x208) with label and weight equal on >= 1 - 1e-6 of
+   voxels, float32 tsdf/rem within 1e-5 and compact ones within one bf16
+   ulp, and 34 more integrate cases at 128x128xZ and 127x125xZ to the same
+   limits (Z = 208, 200 and 13, which the vector width does not divide;
+   images of 128 rows; S = 1, 2, 3, 4 and 6; carried mode with and without
+   changes; an x_offset slab with active dims smaller than the dims; state
+   arrays off their alignment; a column count the warps do not divide);
+   the geometry table's rows equal on >= 1 - 1e-6 of voxels; the three
+   probe kernels at 64x256x256 in every variant, int16 labels exact and
+   bf16 outputs within one bf16 ulp, the writes exact
+   (``kernel_checks``).
 2. Drives each path at the reference operating point (HDL64 64x2048
    source, voxel 0.05 m, bounds +-50/+-50/+-5 m, fixed bounds), with the
    launch counts set to 0 just before it and read just after:
@@ -38,16 +46,27 @@
    against the plain integrate and the plain chain, a non-empty PLY, a cp
    identity transfer equal to the source projection bit for bit, catmesh's
    files and scan equal to mergemesh's bit for bit.
-4. Times each kernel against its plain version (the chain and the table at
-   2048x2048x208; the integrate with and without the table; every probe
-   row), transfer_fast per frame of every adaption, the stream rates,
-   fused_state() and export_mesh(), each with the GPU's name and power
-   limit, and profiles the frame of every adaption for its device time,
-   device launches and idle share.
+4. Times each kernel four ways: the wrapper's time (CUDA events around
+   back-to-back calls), the device time (the summed durations of the device
+   operations of one call, from a ``torch.profiler`` trace), its plain
+   version, and where one PyTorch call computes the same function that
+   call (``scatter_reduce_`` amin, ``bincount``, ``torch.full``: timed
+   here, called by nothing in the port), beside its bound from
+   ``probes/bounds.py``; every case of the integrate, its chain and the
+   z-buffer (``probes/cases.py``); an empty kernel launch; transfer_fast
+   per frame of every adaption, the stream rates, fused_state() and
+   export_mesh(), each with the GPU's name and power limit; and profiles
+   the frame of every adaption for its device time, device launches and
+   idle share. Nothing of the earlier paths was cut to make room: the
+   frame timings average 10 passes where they took 20.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
-lists the kernels as JSON. Any failed check raises, and the exit code is
-then nonzero. Without a CUDA device it exits with 1 at once.
+lists the kernels as JSON (route, source, the TPU kernel replaced, launches
+in all and per frame of each path, the largest difference to the plain
+version, wrapper, device, plain, library and bound ms and what bounds it),
+the one before that the GPU's name and power limit. Any failed check
+raises, and the exit code is then nonzero. Without a CUDA device it exits
+with 1 at once. It fails if ``jax`` or the JAX package was imported.
 """
 
 from __future__ import annotations
@@ -69,7 +88,7 @@ HDL32_PATH = os.path.join(REPO, "configs", "hdl32.yaml")
 sys.path.insert(0, REPO)
 
 from lidar_transfer_tpu_torch.probes.timing import (  # noqa: E402
-    bf16_ulp, cuda_ms, gpu_line)
+    bf16_ulp, cuda_ms, device_ms, gpu_line, whole_trace)
 
 
 def check(cond, what: str) -> None:
@@ -277,13 +296,212 @@ def _check_probe_kernels(torch, rng, kernels) -> None:
         replaces="scripts/probe_pallas_write.py:40", max_abs_err=0.0)
 
 
-def main() -> int:
-    import torch
+def _check_integrate_cases(torch, rng) -> float:
+    """Phase 1 for the integrate's vector and scalar variants at 128x128xZ
+    and 127x125xZ (a last warp with fewer columns; with Z = 13 a last run
+    that ends inside a vector, which takes the scalar variant as the state
+    arrays off their alignment do): a Z the vector width divides (208, 200)
+    and one it does not (13), images of 64 and 128 rows, S = 1, 2 and 4 (compiled in) and 6 (read at
+    run time), carried mode with and without changes, an x_offset slab
+    with active dims smaller than the dims, state arrays off 16-byte
+    alignment; float32 and compact, table and none. -> the largest tsdf/rem difference."""
+    from lidar_transfer_tpu_torch.ops import tsdf as TS
+    from lidar_transfer_tpu_torch.ops.tsdf_cuda import (
+        integrate_chain_cuda, integrate_cuda, precompute_geometry_cuda)
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; the port's smoke run needs one "
-              "NVIDIA GPU", file=sys.stderr)
-        return 1
+    dev = torch.device("cuda")
+    fov = dict(fov_up_deg=3.0, fov_down_deg=-25.0)
+    W = 2048
+
+    def images(S, H, empty=False):
+        depth = (rng.uniform(0.8, 5.0, (S, H, W))
+                 * (rng.random((S, H, W)) > (1.0 if empty else 0.2)))
+        return [torch.from_numpy(a).to(dev) for a in (
+            depth.astype(np.float32),
+            rng.integers(0, 4, (S, H, W)).astype(np.int32),
+            rng.random((S, H, W)).astype(np.float32))]
+
+    def prior(dims, compact, misalign):
+        gen = torch.Generator(device=dev).manual_seed(1)
+        vals = (torch.rand(dims, device=dev, generator=gen) * 2 - 1,
+                torch.randint(0, 3, dims, device=dev, generator=gen).float(),
+                torch.randint(0, 4, dims, device=dev, generator=gen,
+                              dtype=torch.int32),
+                torch.rand(dims, device=dev, generator=gen))
+        dts = TS.COMPACT_DTYPES if compact else TS.F32_DTYPES
+        out = []
+        for v, dt in zip(vals, dts):
+            n = v.numel()
+            flat = torch.empty(n + 1, dtype=dt, device=dev)
+            t = flat[1:] if misalign else flat[:n]   # 2 or 4 bytes off
+            t.copy_(v.reshape(-1).to(dt))
+            out.append(t.view(dims))
+        return TS.TSDFState(*out)
+
+    # (Z, H, S, compact, table, mode, slab, misalign)
+    cases = [(208, 64, 1, c, t, m, False, False)
+             for c in (False, True) for t in (False, True)
+             for m in ("reset", "carried")]
+    cases += [
+        (208, 64, 2, False, True, "chain", False, False),
+        (208, 64, 4, True, True, "chain", False, False),
+        (208, 128, 4, True, False, "chain", False, False),
+        (208, 128, 6, False, True, "chain", False, False),
+        (208, 128, 1, True, True, "reset", False, False),
+        (200, 64, 1, True, True, "reset", False, False),
+        (200, 64, 4, True, False, "chain", False, False),
+        (200, 64, 1, False, True, "carried", False, False),
+        (13, 64, 1, False, True, "reset", False, False),
+        (13, 64, 2, True, True, "chain", False, False),
+        (13, 128, 1, True, False, "carried", False, False),
+        (208, 64, 1, True, True, "unchanged", False, False),
+        (208, 64, 1, False, False, "unchanged", False, False),
+        (208, 64, 1, True, True, "reset", True, False),
+        (208, 64, 1, False, True, "carried", True, False),
+        (208, 64, 2, True, False, "chain", True, False),
+        (208, 64, 1, True, True, "carried", False, True),
+        (208, 64, 2, False, True, "chain", False, True),
+        (13, 64, 1, True, False, "reset", False, True),
+        (208, 128, 6, True, True, "chain", False, True)]
+    cases = [c + (False,) for c in cases] + [
+        (208, 64, 1, True, True, "reset", False, False, True),
+        (208, 64, 3, False, False, "chain", False, False, True),
+        (208, 64, 1, False, True, "carried", False, False, True),
+        (13, 64, 1, True, True, "reset", False, False, True),
+        (13, 64, 1, False, False, "carried", False, False, True),
+        (13, 64, 3, True, True, "chain", False, False, True)]
+    worst, tables = 0.0, {}
+    for Z, H, S, compact, table, mode, slab, misalign, odd in cases:
+        X, Y = (127, 125) if odd else (128, 128)
+        oz = -0.35 if Z == 13 else -5.0
+        full = TS.VolumeSpec((-3.2, -3.2, oz), 0.05, (X, Y, Z))
+        x0, xs = (40, 16) if slab else (0, X)
+        spec = TS.VolumeSpec(full.origin, 0.05, (xs, Y, Z))
+        active = (100, 120, max(Z - 8, 1)) if slab else None
+        if (X, Z, H) not in tables:
+            tables[X, Z, H] = precompute_geometry_cuda(full, 3.0, -25.0, H,
+                                                       device=dev)
+        v_tab = tables[X, Z, H][x0:x0 + xs] if table else None
+        imgs = images(S, H, empty=mode == "unchanged")
+        kw = dict(origin=full.origin, active_dims=active, x_offset=x0,
+                  **fov)
+        start = prior(spec.dims, compact, misalign)
+        a = TS.TSDFState(*(t.clone() if not misalign else t for t in start))
+        b = TS.TSDFState(*(t.clone() for t in start))
+        if mode == "chain":
+            a = integrate_chain_cuda(a, spec, *imgs, v_tab=v_tab, **kw)
+            b = TS.integrate_chain(b, spec, *imgs, **kw)
+        else:
+            one = [t[0] for t in imgs]
+            a = integrate_cuda(a, spec, *one, reset=mode == "reset",
+                               v_tab=v_tab, **kw)
+            b = TS.integrate(b, spec, *one, reset=mode == "reset", **kw)
+        torch.cuda.synchronize()
+        what = (f"integrate case Z={Z} H={H} S={S} "
+                f"{'compact' if compact else 'f32'} table={table} {mode}"
+                f"{' slab x=40..55, active (100,120,Z-8)' if slab else ''}"
+                f"{' misaligned' if misalign else ''}"
+                f"{' 127x125 columns' if odd else ''}")
+        worst = max(worst, _compare_states(torch, a, b, what))
+        ref0 = prior(spec.dims, compact, False)
+        moved = float(((b.tsdf != ref0.tsdf) | (b.label != ref0.label))
+                      .float().mean())
+        if mode == "unchanged":
+            check(moved == 0.0, f"{what}: empty images changed the state")
+        else:
+            check(moved > 1e-3, f"{what}: the images change no share of "
+                  f"the voxels ({moved:g})")
+    print(f"integrate cases: {len(cases)} equal to their plain versions, "
+          f"max |tsdf|/|rem| difference {worst:g}")
+    return worst
+
+
+def _check_zbuffer_cases(torch, rng) -> None:
+    """Phase 1 for the z-buffer's workspace, bit for bit against the plain
+    version: one workspace through a sequence of image sizes and back,
+    N = 0, all points invalid, all points in one pixel with equal keys; no scratch allocated beyond the sizes' growth."""
+    from lidar_transfer_tpu_torch.ops import projection as TP
+
+    dev = torch.device("cuda")
+
+    def inputs(n, npix, kind):
+        pix = rng.integers(0, npix, n).astype(np.int32)
+        key = rng.uniform(1.0, 80.0, n).astype(np.float32)
+        if kind == "random" and n:
+            tie = rng.integers(0, n - 1, n // 5)
+            pix[tie + 1], key[tie + 1] = pix[tie], key[tie]
+            pix[rng.random(n) < 0.1] = npix
+        elif kind == "invalid":
+            pix[:] = npix
+            pix[::3] = npix + 5
+        elif kind == "one pixel":
+            pix[:], key[:] = npix // 2, 7.5
+        return torch.from_numpy(pix).to(dev), torch.from_numpy(key).to(dev)
+
+    seq = [(64 * 2048, 139264, "random"), (32 * 2048, 70000, "random"),
+           (128 * 2048, 300000, "random"), (64 * 2048, 0, "random"),
+           (64 * 2048, 139264, "invalid"), (64 * 2048, 139264, "one pixel"),
+           (32 * 2048, 70000, "random"), (64 * 2048, 139264, "random")]
+    ws = TP.ZBufferWorkspace(dev)
+    for npix, n, kind in seq:
+        pix, key = inputs(n, npix, kind)
+        got = TP.zbuffer_winners(pix, key, npix, workspace=ws)
+        ref = TP.zbuffer_winners_plain(pix, key, npix)
+        torch.cuda.synchronize()
+        check(torch.equal(got, ref), f"zbuffer workspace npix={npix} N={n} "
+              f"{kind} != plain")
+        if kind == "one pixel":
+            check(int(got[npix // 2]) == 0 and int((got >= 0).sum()) == 1,
+                  "zbuffer: equal keys must go to the lowest index")
+    check(ws.allocations == 2, f"zbuffer workspace allocated "
+          f"{ws.allocations} times for two growths")
+    print(f"zbuffer workspace: {len(seq)} calls through 64/32/128/64x2048 "
+          "pixels, N = 0, all invalid, one pixel with equal keys: equal to "
+          f"plain, {ws.allocations} scratch allocations")
+
+
+def _library_times(torch, pix_t, key_t, npix, pred_t, tgt_t, C):
+    """One PyTorch call that computes the z-buffer's and the confusion's
+    function on inputs prepared beforehand (the packed words; the cell
+    indices): timed here as a yardstick, called by nothing in the port.
+    -> (z-buffer ms, confusion ms), each checked against the kernel's
+    result."""
+    from lidar_transfer_tpu_torch.metrics import confusion as TF
+    from lidar_transfer_tpu_torch.ops import projection as TP
+
+    n = pix_t.shape[0]
+    words = ((key_t.view(torch.int32).to(torch.int64) << 32)
+             | torch.arange(n, device=pix_t.device))
+    where = torch.where((pix_t < 0) | (pix_t >= npix), npix,
+                        pix_t).to(torch.int64)         # npix: the overflow
+    empty = torch.iinfo(torch.int64).max
+    buf = torch.full((npix + 1,), empty, dtype=torch.int64,
+                     device=pix_t.device)
+    z_ms = cuda_ms(lambda: buf.scatter_reduce_(0, where, words, "amin"),
+                   200)
+    win = torch.where(buf[:npix] == empty, -1,
+                      buf[:npix] & 0xFFFFFFFF).to(torch.int32)
+    check(torch.equal(win, TP.zbuffer_winners(pix_t, key_t, npix)),
+          "scatter_reduce_ amin != z-buffer kernel")
+    ok = (pred_t >= 0) & (pred_t < C) & (tgt_t >= 0) & (tgt_t < C)
+    ref = TF.confusion_matrix(pred_t, tgt_t, C)
+    # the layout of the kernel's counts is found from its result
+    for cells in ((tgt_t * C + pred_t)[ok].to(torch.int64),
+                  (pred_t * C + tgt_t)[ok].to(torch.int64)):
+        if torch.equal(torch.bincount(cells, minlength=C * C).reshape(C, C)
+                       .to(ref.dtype), ref):
+            break
+    else:
+        check(False, "bincount != confusion kernel")
+    c_ms = cuda_ms(lambda: torch.bincount(cells, minlength=C * C), 200)
+    return z_ms, c_ms
+
+
+def kernel_checks(torch, kernels) -> tuple:
+    """Phase 1: build the kernels and hold each against its plain version
+    on the card, filling ``kernels`` with a row each. -> the z-buffer's and
+    the confusion's inputs (pix, key, npix, pred, target, C), which phase 4
+    times."""
     from lidar_transfer_tpu_torch import _build
     from lidar_transfer_tpu_torch.metrics import confusion as TF
     from lidar_transfer_tpu_torch.ops import projection as TP
@@ -291,18 +509,11 @@ def main() -> int:
     from lidar_transfer_tpu_torch.ops.tsdf_cuda import integrate_cuda
 
     dev = torch.device("cuda")
-    gpu = gpu_line()
-    print(gpu)
-    tag = f"[{gpu}]"
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"python {sys.version.split()[0]} device "
-          f"{torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     _build.library()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s "
           f"({_build.library_path().name})")
     rng = np.random.default_rng(0)
-    kernels = {}
 
     # ---------------------------------------------------- 1. kernel checks
     n, npix = 139264, 64 * 2048
@@ -323,11 +534,8 @@ def main() -> int:
     kernels["zbuffer"] = dict(
         route="cuda", source="lidar_transfer_tpu_torch/csrc/zbuffer.cu",
         replaces="lidar_transfer_tpu/ops/projection.py:209",
-        max_abs_err=err,
-        ms=cuda_ms(lambda: TP.zbuffer_winners(pix_t, key_t, npix),
-                    200),
-        plain_ms=cuda_ms(lambda: TP.zbuffer_winners_plain(
-            pix_t, key_t, npix), 50))
+        max_abs_err=err)
+    _check_zbuffer_cases(torch, rng)
 
     m, C = 131072, 260
     pred = rng.choice([0, 10, 40, 48, 50, 70, 252], m).astype(np.int32)
@@ -346,11 +554,7 @@ def main() -> int:
     kernels["confusion"] = dict(
         route="cuda", source="lidar_transfer_tpu_torch/csrc/confusion.cu",
         replaces="lidar_transfer_tpu/metrics/confusion.py:73",
-        max_abs_err=err,
-        ms=cuda_ms(lambda: TF.confusion_matrix(pred_t, tgt_t, C),
-                    200),
-        plain_ms=cuda_ms(lambda: TF.confusion_scatter(
-            pred_t, tgt_t, C), 50))
+        max_abs_err=err)
 
     spec = TS.VolumeSpec((-6.4, -6.4, -5.0), 0.05, (256, 256, 208))
     depth = (rng.uniform(1.0, 12.0, (64, 2048))
@@ -381,6 +585,7 @@ def main() -> int:
                 f"write_weight={write_weight}"))
             del a, b
     del prior
+    worst = max(worst, _check_integrate_cases(torch, rng))
     kernels["tsdf_integrate"] = dict(
         route="cuda",
         source="lidar_transfer_tpu_torch/csrc/tsdf_integrate.cu",
@@ -388,26 +593,91 @@ def main() -> int:
         max_abs_err=worst)
     _check_fusion_kernels(torch, rng, kernels)
     _check_probe_kernels(torch, rng, kernels)
+    return pix_t, key_t, npix, pred_t, tgt_t, C
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's smoke run needs one "
+              "NVIDIA GPU", file=sys.stderr)
+        return 1
+    from lidar_transfer_tpu_torch.metrics import confusion as TF
+    from lidar_transfer_tpu_torch.ops import projection as TP
+    from lidar_transfer_tpu_torch.probes import bounds
+
+    dev = torch.device("cuda")
+    gpu = gpu_line()
+    print(gpu)
+    tag = f"[{gpu}]"
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]} device "
+          f"{torch.cuda.get_device_name(0)}")
+    kernels = {}
+    pix_t, key_t, npix, pred_t, tgt_t, C = kernel_checks(torch, kernels)
+    n, m = pix_t.shape[0], pred_t.shape[0]
+
+    # ------------------------- 4a. the two small kernels, timed four ways
+    ws = TP.ZBufferWorkspace(dev)
+    zb = bounds.zbuffer(n, npix)
+    z_lib, c_lib = _library_times(torch, pix_t, key_t, npix, pred_t, tgt_t,
+                                  C)
+    call = lambda: TP.zbuffer_winners(pix_t, key_t, npix,  # noqa: E731
+                                      workspace=ws)
+    z_dev, z_ops, z_names = device_ms(call, 50)
+    kernels["zbuffer"].update(
+        ms=cuda_ms(call, 200), device_ms=z_dev,
+        plain_ms=cuda_ms(lambda: TP.zbuffer_winners_plain(
+            pix_t, key_t, npix), 50),
+        bound_ms=zb.ms, bound_by=zb.by, library_ms=z_lib)
+    print(f"zbuffer with the engine's workspace: {z_ops:.1f} device "
+          f"operations a call ({z_names}), {ws.allocations} scratch "
+          f"allocation in {2 + 50 + 2 + 200} calls {tag}")
+    check(z_ops <= 2 and ws.allocations == 1, "a z-buffer call with a "
+          "workspace issues more than two device operations or allocates")
+    cb = bounds.confusion(m, C)
+    call = lambda: TF.confusion_matrix(pred_t, tgt_t, C)  # noqa: E731
+    kernels["confusion"].update(
+        ms=cuda_ms(call, 200), device_ms=device_ms(call, 50)[0],
+        plain_ms=cuda_ms(lambda: TF.confusion_scatter(pred_t, tgt_t, C),
+                         50),
+        bound_ms=cb.ms, bound_by=cb.by, library_ms=c_lib)
 
     # ------------------------------------------------------ 2. the paths
-    paths = {}
+    paths, per_frame = {}, {}
     with tempfile.TemporaryDirectory(prefix="lt_smoke_") as work:
-        paths["mergemesh"] = _main_path(torch, work, kernels, tag)
+        paths["mergemesh"] = _main_path(torch, work, kernels, tag, per_frame)
         torch.cuda.empty_cache()
-        paths["mesh"] = _mesh_path(torch, work, kernels, tag)
+        paths["mesh"] = _mesh_path(torch, work, kernels, tag, per_frame)
         torch.cuda.empty_cache()
-        paths["cp"] = _cp_path(torch, work, tag)
-        paths["catmesh"] = _catmesh_path(torch, work, tag)
+        paths["cp"] = _cp_path(torch, work, tag, per_frame)
+        paths["catmesh"] = _catmesh_path(torch, work, tag, per_frame)
         torch.cuda.empty_cache()
-        paths["upsample"] = _upsample_path(torch, work, tag)
+        paths["upsample"] = _upsample_path(torch, work, tag, per_frame)
         torch.cuda.empty_cache()
-    paths["probes"] = _probe_path(torch, kernels, tag)
+    paths["probes"] = per_frame["probes"] = _probe_path(torch, kernels, tag)
+    _kernel_cases(torch, kernels, tag)
     check("jax" not in sys.modules, "the port imported jax")
+    check(not any(m == "lidar_transfer_tpu"
+                  or m.startswith("lidar_transfer_tpu.")
+                  for m in sys.modules), "the port imported the JAX package")
+    rows = []
     for name, k in kernels.items():
-        print(f"kernel {name}: {k['ms']:.4f} ms, plain {k['plain_ms']:.4f} "
-              f"ms {tag}")
-    rows = [dict(name=name, launches=sum(c[name] for c in paths.values()),
-                 **k) for name, k in kernels.items()]
+        k.setdefault("library_ms", None)
+        k["launches"] = sum(c[name] for c in paths.values())
+        k["launches_per_frame"] = {
+            path: c[name] for path, c in per_frame.items() if c.get(name)}
+        check(k["device_ms"] is not None, f"kernel {name}: the profiler "
+              "gave no whole trace of its device operations")
+        print(f"kernel {name}: wrapper {k['ms']:.4f} ms, device "
+              f"{k['device_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms by "
+              f"{k['bound_by']} (share reached "
+              f"{k['bound_ms'] / k['device_ms']:.3f}), plain "
+              f"{k['plain_ms']:.4f} ms, library {k['library_ms']} ms, "
+              f"launches per frame {k['launches_per_frame']} {tag}")
+        rows.append(dict(name=name, **k))
+    print(gpu)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -491,7 +761,49 @@ def _card_vs_cpu(vs_card, vs_cpu, what: str) -> float:
     return float(rerr.max()) if rerr.numel() else 0.0
 
 
-def _main_path(torch, work, kernels, tag):
+def _launches_since(before: dict, per: float = 1.0) -> dict:
+    """The kernels launched since the snapshot ``before`` of
+    ``_build.launch_counts()``, over ``per`` frames."""
+    from lidar_transfer_tpu_torch import _build
+
+    return {k: (v - before[k]) / per
+            for k, v in _build.launch_counts().items() if v > before[k]}
+
+
+def _kernel_cases(torch, kernels, tag) -> None:
+    """Every case of rows 1, 1b and A, and rows 2 and 3, at the reference
+    point beside its bound (``probes/cases.py``, the table ``PERF.md``
+    keeps); the integrate's, the chain's and the table's JSON rows take
+    the case their path launches (float32 state with the table)."""
+    from lidar_transfer_tpu_torch.probes import cases
+
+    rows = {r["case"]: r for r in cases.measure()}
+    torch.cuda.empty_cache()
+    for name, r in rows.items():
+        d = r["device_ms"]
+        print(f"case {name}: wrapper {r['ms']:.4f} ms, device "
+              + ("not measured" if d is None else
+                 f"{d:.4f} ms ({r['device_ops']:.1f} operations), share of "
+                 f"the bound {r['bound_ms'] / d if d else 0:.3f}")
+              + f", bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
+              f"({r['bytes']} bytes) {r['note']} {tag}")
+    dims = "x".join(map(str, cases.DIMS))
+    for kernel, case in (
+            ("tsdf_integrate", f"single {dims} f32 reset no weight, table"),
+            ("tsdf_integrate_chain", f"chain S=3 {dims} f32, table"),
+            ("tsdf_geometry", f"geometry table {dims}")):
+        r = rows[case]
+        kernels[kernel].update(ms=r["ms"], device_ms=r["device_ms"],
+                               bound_ms=r["bound_ms"],
+                               bound_by=r["bound_by"])
+    empty = rows["empty kernel launch"]["device_ms"]
+    z = kernels["zbuffer"]["device_ms"]
+    if empty and z:
+        print(f"zbuffer device time {z:.5f} ms = {z / empty:.2f} x an empty "
+              f"kernel launch's {empty:.5f} ms (aim: within 3 x) {tag}")
+
+
+def _main_path(torch, work, kernels, tag, per_frame):
     """Phases 2-4 of the mergemesh path in the scratch directory ``work``
     (it writes the synthetic dataset ``work/kitti``); returns the launch
     counts of the path."""
@@ -518,6 +830,8 @@ def _main_path(torch, work, kernels, tag):
 
     _build.reset_launch_counts()
     _, m_id, text = run_cli("identity")
+    per_frame["mergemesh"] = _launches_since(
+        dict.fromkeys(_build.launch_counts(), 0), len(m_id))
     for key in ("IoU: ", "Acc: ", "MSE: ", "Took: "):
         check(text.count(key) == 6, f"identity run printed {key!r} lines")
     out_x, m_x, _ = run_cli("cross", "-t", HDL32_PATH)
@@ -529,7 +843,9 @@ def _main_path(torch, work, kernels, tag):
     w0 = load_window(seq, cfg, 0, cap, dev)
     vs_card = eng.transfer_fast(w0)
     t = time.perf_counter()
+    before = _build.launch_counts()
     state = eng.fused_state()
+    per_frame["mergemesh.fused_state"] = _launches_since(before)
     torch.cuda.synchronize()
     print(f"fused_state {tuple(state.tsdf.shape)} f32: "
           f"{time.perf_counter() - t:.2f} s first call (allocation "
@@ -611,9 +927,9 @@ def _main_path(torch, work, kernels, tag):
 
     wins = [load_window(seq, cfg, i, cap, dev) for i in range(6)]
     frame_ms = cuda_ms(lambda: [eng.transfer_fast(w)
-                                        for w in wins], 20) / len(wins)
+                                        for w in wins], 10) / len(wins)
     stacked = stack_windows(wins[:4])
-    stream_ms = cuda_ms(lambda: eng.transfer_stream(stacked), 20)
+    stream_ms = cuda_ms(lambda: eng.transfer_stream(stacked), 10)
     print(f"transfer_fast HDL64->HDL32: {frame_ms:.3f} ms/frame "
           f"({1e3 / frame_ms:.1f} scans/s) {tag}")
     print(f"transfer_stream 4 frames: {stream_ms:.3f} ms/batch "
@@ -622,7 +938,7 @@ def _main_path(torch, work, kernels, tag):
     return counts
 
 
-def _mesh_path(torch, work, kernels, tag):
+def _mesh_path(torch, work, kernels, tag, per_frame):
     """Phases 2-4 of the mesh adaption, three scans per window, on the
     dataset ``work/kitti``; returns the launch counts of the path."""
     from lidar_transfer_tpu_torch import _build
@@ -643,6 +959,8 @@ def _mesh_path(torch, work, kernels, tag):
     # ------------------------------------------- 2. main path (mesh)
     _build.reset_launch_counts()
     _, m_id, text = _run_cli(work, base, "mesh_identity")
+    per_frame["mesh"] = _launches_since(
+        dict.fromkeys(_build.launch_counts(), 0), len(m_id))
     for key in ("IoU: ", "Acc: ", "MSE: ", "Took: "):
         check(text.count(key) == n_frames,
               f"mesh identity run printed {key!r} lines")
@@ -657,7 +975,9 @@ def _mesh_path(torch, work, kernels, tag):
         eng.transfer_fast(w1)
         torch.cuda.synchronize()
         t = time.perf_counter()
+        before = _build.launch_counts()
         state = eng.fused_state()
+        per_frame["mesh.fused_state"] = _launches_since(before)
         torch.cuda.synchronize()
         fused[compact] = time.perf_counter() - t
         print(f"mesh fused_state {tuple(state.tsdf.shape)} "
@@ -781,14 +1101,16 @@ def _mesh_path(torch, work, kernels, tag):
                             compact_volume=True)
     vol_ms = cuda_ms(lambda: [vol.transfer_fast(w)
                                       for w in wins], 3) / len(wins)
+    before = _build.launch_counts()
     vv = vol.transfer_fast(wins[0])
+    per_frame["mesh.volume_frame"] = _launches_since(before)
     print(f"mesh transfer_fast (mesh_attrs=volume, compact, chain in the "
           f"frame): {vol_ms:.3f} ms/frame ({1e3 / vol_ms:.1f} scans/s), "
           f"mask fill {float(vv.mask.float().mean()):.4f} {tag}")
     return counts
 
 
-def _cp_path(torch, work, tag):
+def _cp_path(torch, work, tag, per_frame):
     """The cp adaption at the reference point on the dataset
     ``work/kitti``; returns the launch counts of the path."""
     from lidar_transfer_tpu_torch import _build
@@ -804,6 +1126,8 @@ def _cp_path(torch, work, tag):
 
     _build.reset_launch_counts()
     _, m_id, _ = _run_cli(work, base, "cp_identity")
+    per_frame["cp"] = _launches_since(
+        dict.fromkeys(_build.launch_counts(), 0), len(m_id))
     _, m_x, _ = _run_cli(work, base, "cp_cross", "-t", HDL32_PATH)
     w0 = load_window(seq, cfg, 0, cap, dev)
     vs, _ = TD.TransferEngine(HDL64, HDL64, cfg, fixed_bounds=True,
@@ -856,7 +1180,7 @@ def _cp_path(torch, work, tag):
     return counts
 
 
-def _catmesh_path(torch, work, tag):
+def _catmesh_path(torch, work, tag, per_frame):
     """The catmesh adaption (splat engine) at the reference point, held
     against the mergemesh run of ``_main_path``; returns the launch
     counts of the path."""
@@ -872,11 +1196,15 @@ def _catmesh_path(torch, work, tag):
     seq, cap = _sequence(work)
 
     _build.reset_launch_counts()
-    out, _, _ = _run_cli(work, base, "catmesh_cross", "-t", HDL32_PATH)
+    out, m_x, _ = _run_cli(work, base, "catmesh_cross", "-t", HDL32_PATH)
+    per_frame["catmesh"] = _launches_since(
+        dict.fromkeys(_build.launch_counts(), 0), len(m_x))
     w0 = load_window(seq, cfg, 0, cap, dev)
     eng = TD.TransferEngine(HDL64, hdl32, cfg, fixed_bounds=True, device=dev)
     vs = eng.transfer_fast(w0)
+    before = _build.launch_counts()
     state = eng.fused_state()
+    per_frame["catmesh.fused_state"] = _launches_since(before)
     torch.cuda.synchronize()
     counts = _build.launch_counts()
     print(f"launches on the catmesh path: {counts}")
@@ -902,7 +1230,7 @@ def _catmesh_path(torch, work, tag):
     for name, e in (("mergemesh", mm_eng), ("catmesh", eng),
                     ("catmesh", eng), ("mergemesh", mm_eng)):
         ms[name].append(cuda_ms(lambda: [e.transfer_fast(w) for w in wins],
-                                20) / len(wins))
+                                10) / len(wins))
     print("catmesh transfer_fast HDL64->HDL32: " + "; ".join(
         f"{k} {' / '.join(f'{v:.3f}' for v in vs)} ms/frame"
         for k, vs in ms.items()) + f" (timed mergemesh, catmesh, catmesh, "
@@ -911,7 +1239,7 @@ def _catmesh_path(torch, work, tag):
     return counts
 
 
-def _upsample_path(torch, work, tag):
+def _upsample_path(torch, work, tag, per_frame):
     """A target denser than the source, HDL64 -> HDL64x2 (128 beams over
     the same fov, as ``bench.py --upsample``), per frame and streamed, on
     the dataset ``work/kitti_up``, which it writes; returns the launch
@@ -952,6 +1280,8 @@ def _upsample_path(torch, work, tag):
 
     _build.reset_launch_counts()
     out_f, m_f, _ = _run_cli(work, base, "up_frames", "-t", up_path)
+    per_frame["upsample"] = _launches_since(
+        dict.fromkeys(_build.launch_counts(), 0), len(m_f))
     out_s, _, _ = _run_cli(work, base, "up_stream", "-t", up_path,
                            "--stream", "4")
     w0 = load_window(seq, cfg, 0, cap, dev)
@@ -1001,6 +1331,7 @@ def _probe_path(torch, kernels, tag):
     row its kernel was written for: ``full`` at BX 2 with three outputs,
     ``precols``, and ``alias_any`` (three outputs in place)."""
     from lidar_transfer_tpu_torch import _build, probes
+    from lidar_transfer_tpu_torch.probes import ablate, bounds, parts, write
 
     _build.reset_launch_counts()
     t = time.perf_counter()
@@ -1017,30 +1348,31 @@ def _probe_path(torch, kernels, tag):
               "probe path")
         r = next(r for r in rows if (r["probe"], r["row"]) == (probe, row))
         k = kernels[name]
-        k.update(ms=r["ms"], plain_ms=r["plain_ms"],
+        k.update(ms=r["ms"], device_ms=r["device_ms"],
+                 plain_ms=r["plain_ms"],
                  max_abs_err=max(k["max_abs_err"], r["max_abs_err"]))
+    for name, b in (
+            ("probe_parts", bounds.probe_parts(parts.DIMS, parts.CW, 3)),
+            ("probe_ablate", bounds.probe_ablate(ablate.DIMS, ablate.CW)),
+            ("probe_write", bounds.probe_write(
+                write.DIMS, [dt.itemsize for dt in write.ALIAS_DTYPES]))):
+        kernels[name].update(bound_ms=b.ms, bound_by=b.by)
+    # the one PyTorch call that writes the alias probe's three outputs
+    kernels["probe_write"]["library_ms"] = next(
+        r["ms"] for r in rows if r["row"] == "PyTorch full bfloat16 x3")
     return counts
 
 
 def _profile_frames(torch, eng, wins, frame_ms, tag):
     """Device time and device launches per frame of ``transfer_fast`` from
-    a ``torch.profiler`` trace of the frames ``wins``; the idle share is
+    a ``torch.profiler`` trace of the frames ``wins`` (after one pass of
+    them inside the trace, see ``timing.whole_trace``); the idle share is
     1 - device time / the frame time measured with CUDA events (without
     the profiler, whose own host cost would inflate the frame)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for w in wins:
-            eng.transfer_fast(w)
-        torch.cuda.synchronize()
-    on_dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not on_dev:
-        print("transfer_fast device time: not measured (the profiler "
-              f"recorded no device activity) {tag}")
-        return
+    on_dev = whole_trace(lambda: [eng.transfer_fast(w) for w in wins], 1,
+                         warmup=1)
+    check(on_dev, "the profiler gave no whole trace of the frames (no two "
+          "of its traces agreed)")
     dev_ms = sum(e.time_range.elapsed_us() for e in on_dev) / 1e3 / len(wins)
     top = {}
     for e in on_dev:

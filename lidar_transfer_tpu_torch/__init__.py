@@ -2,10 +2,11 @@
 
 Transfers SemanticKITTI labels from one LiDAR geometry to another on an
 NVIDIA H100. The JAX package ``lidar_transfer_tpu`` stays the reference;
-this package imports ``torch`` and never ``jax``, mirrors its module names
+this package stands alone: it imports ``torch``, never ``jax`` and nothing
+of ``lidar_transfer_tpu``. It mirrors that package's module names
 (``ops/projection.py``, ``ops/splat.py``, ``ops/tsdf.py``,
-``pipeline/deform.py``, ...), and reuses its jax-free modules
-(``config``, ``datasets``, ``utils.runtime``, ``utils.prefetch``).
+``pipeline/deform.py``, ...) and keeps its own copies of the numpy-only
+modules it needs (``config``, ``datasets``, ``utils``).
 
 Ported so far: the ``lt-transfer`` CLI with the cp, mergemesh, mesh and
 catmesh adaptions (splat synthesis, targets denser than the source

@@ -39,11 +39,11 @@ _F = ctypes.c_float
 SIGNATURES = {
     "lt_zbuffer_winners": (_P, _P, _L, _L, _P, _P, _P),
     "lt_confusion": (_P, _P, _L, _I, _P, _P),
-    "lt_tsdf_integrate": (_P, _P, _P, _P, _P, _P, _P, _P,
+    "lt_tsdf_integrate": (_P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _I, _I,
                           _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F,
                           _I, _I, _I, _I, _I, _P),
-    "lt_tsdf_integrate_chain": (_P, _P, _P, _P, _P, _P, _P, _P,
+    "lt_tsdf_integrate_chain": (_P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _I, _I, _I, _I,
                                 _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _F,
                                 _I, _I, _I, _I, _P),
@@ -55,6 +55,7 @@ SIGNATURES = {
                         _I, _I, _I, _I, _I, _I, _F, _F, _F, _P),
     "lt_probe_write": (_P, _P, _P, _I, _I, _I, _I,
                        _L, _L, _L, _L, _L, _I, _P),
+    "lt_empty_launch": (_P,),
 }
 
 #: launches per kernel since the last reset_launch_counts()

@@ -33,8 +33,6 @@ from shutil import copy2
 import numpy as np
 import torch
 
-from lidar_transfer_tpu.utils.prefetch import Prefetcher
-from lidar_transfer_tpu.utils.runtime import StageTimer
 from lidar_transfer_tpu_torch.config import (SensorSpec, TransferConfig,
                                              make_color_lut)
 from lidar_transfer_tpu_torch.datasets import kitti
@@ -46,6 +44,8 @@ from lidar_transfer_tpu_torch.pipeline.multiscan import (load_window,
                                                          min_start_index,
                                                          stack_windows)
 from lidar_transfer_tpu_torch.pipeline.writer import write_virtual_scan
+from lidar_transfer_tpu_torch.utils.prefetch import Prefetcher
+from lidar_transfer_tpu_torch.utils.runtime import StageTimer
 
 
 def build_parser() -> argparse.ArgumentParser:

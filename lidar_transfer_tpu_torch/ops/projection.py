@@ -158,16 +158,78 @@ def zbuffer_winners_plain(pix: torch.Tensor, key: torch.Tensor,
     return win
 
 
-def zbuffer_winners(pix: torch.Tensor, key: torch.Tensor,
-                    npix: int) -> torch.Tensor:
+class ZBufferWorkspace:
+    """The z-buffer kernel's scratch (npix 64-bit words), kept between
+    calls so that a call allocates and initialises nothing.
+
+    One workspace serves one device and any sequence of image sizes: it
+    grows when a larger ``npix`` comes. It is used on PyTorch's current
+    stream only: a call on another stream than the one the scratch was
+    made on makes a new scratch there. A caller that shares one workspace
+    between threads orders their calls itself. On the CPU it holds nothing.
+
+    The scratch is filled with all-ones once, when it is allocated, and
+    every call leaves it so: a call is the minimum kernel and a decode
+    kernel that cleans up, two device operations.
+    """
+
+    def __init__(self, device=None):
+        self.device = None if device is None else torch.device(device)
+        self._scratch: torch.Tensor | None = None
+        self._stream = None
+        #: scratch allocations so far (a steady state makes none)
+        self.allocations = 0
+
+    def scratch(self, npix: int, device: torch.device) -> torch.Tensor:
+        """>= npix int64 words on ``device``, all-ones; raises for another
+        device than the workspace's."""
+        if self.device is None:
+            self.device = device
+        if (device.type != self.device.type
+                or None not in (device.index, self.device.index)
+                and device.index != self.device.index):
+            raise ValueError(f"ZBufferWorkspace of {self.device} used on "
+                             f"{device}")
+        stream = torch.cuda.current_stream(device).cuda_stream
+        if (self._scratch is None or self._scratch.shape[0] < npix
+                or self._stream != stream):
+            self._scratch = torch.full((npix,), -1, dtype=torch.int64,
+                                       device=device)
+            self._stream = stream
+            self.allocations += 1
+        return self._scratch
+
+    def drop(self) -> None:
+        """Forget the scratch (after a failed launch, whose scratch may
+        not be clean)."""
+        self._scratch = None
+
+
+def zbuffer_winners(pix: torch.Tensor, key: torch.Tensor, npix: int, *,
+                    workspace: ZBufferWorkspace | None = None
+                    ) -> torch.Tensor:
     """Per-pixel winner index (kernel A, ``csrc/zbuffer.cu``).
 
     pix (N,) int32 in [0, npix] (npix = invalid), key (N,) float32,
     non-negative for valid points. Returns (npix,) int32, -1 where empty.
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel.
+    kernel on the current stream, with the scratch of ``workspace`` (see
+    :class:`ZBufferWorkspace`) or, without one, a scratch allocated and
+    initialised for this call.
     """
+    if workspace is not None and not isinstance(workspace,
+                                                ZBufferWorkspace):
+        raise TypeError(f"zbuffer_winners: workspace is a "
+                        f"{type(workspace).__name__}, not a "
+                        "ZBufferWorkspace")
     if pix.device.type == "cpu" and key.device.type == "cpu":
+        if workspace is not None and workspace.device not in (None,
+                                                              pix.device):
+            raise ValueError(f"ZBufferWorkspace of {workspace.device} used "
+                             f"on {pix.device}")
+        if pix.dtype != torch.int32 or key.dtype != torch.float32:
+            raise TypeError(f"zbuffer_winners: need int32 pix and float32 "
+                            f"key, got {pix.dtype} and {key.dtype}")
         return zbuffer_winners_plain(pix, key, npix)
     if pix.device.type != "cuda" or key.device != pix.device:
         raise ValueError(f"zbuffer_winners: pix on {pix.device}, key on "
@@ -183,11 +245,17 @@ def zbuffer_winners(pix: torch.Tensor, key: torch.Tensor,
     if not 0 < npix < 2**31 or pix.shape[0] >= 2**31:  # int32 winners
         raise ValueError(f"zbuffer_winners: npix {npix} / N {pix.shape[0]} "
                          "out of range")
-    scratch = torch.empty(npix, dtype=torch.int64, device=pix.device)
+    ws = ZBufferWorkspace(pix.device) if workspace is None else workspace
+    scratch = ws.scratch(npix, pix.device)
     win = torch.empty(npix, dtype=torch.int32, device=pix.device)
-    _build.launch("zbuffer", "lt_zbuffer_winners", pix.data_ptr(),
-                  key.data_ptr(), pix.shape[0], npix, scratch.data_ptr(),
-                  win.data_ptr(), _build.stream_handle(pix.device))
+    try:
+        _build.launch("zbuffer", "lt_zbuffer_winners", pix.data_ptr(),
+                      key.data_ptr(), pix.shape[0], npix,
+                      scratch.data_ptr(), win.data_ptr(),
+                      _build.stream_handle(pix.device))
+    except RuntimeError:
+        ws.drop()
+        raise
     return win
 
 
@@ -212,21 +280,22 @@ def range_project(points: torch.Tensor, remissions: torch.Tensor,
                   labels: torch.Tensor, valid: torch.Tensor, *,
                   H: int, W: int, fov_up_deg, fov_down_deg,
                   beam_angles: torch.Tensor | None = None,
-                  beam_rows: bool = False,
-                  winner: str = "depth") -> RangeImage:
+                  beam_rows: bool = False, winner: str = "depth",
+                  workspace: ZBufferWorkspace | None = None) -> RangeImage:
     """Project a padded point set into an (H,W) spherical range image:
     the nearest valid point per pixel (``winner="depth"``) or the one
     closest to the pixel centre (``winner="pdist"``), first index on ties.
 
     points (N,3) f32, remissions (N,) f32, labels (N,) i32, valid (N,)
-    bool; beam_angles optional (B,) radians.
+    bool; beam_angles optional (B,) radians; ``workspace`` is handed to
+    :func:`zbuffer_winners`.
     """
     _check_winner(winner)
     _check_beam_rows(beam_rows, beam_angles, H)
     pix, key, depth, uf, vf, px, py, valid = _pixel_keys(
         points, valid, fov_up_deg, fov_down_deg, beam_angles,
         H, W, beam_rows, winner)
-    win = zbuffer_winners(pix, key, H * W)
+    win = zbuffer_winners(pix, key, H * W, workspace=workspace)
     has = win >= 0
     g = torch.where(has, win, 0).to(torch.int64)
 
@@ -244,7 +313,8 @@ def range_project(points: torch.Tensor, remissions: torch.Tensor,
 def project_winner_order(points: torch.Tensor, valid: torch.Tensor, *,
                          H: int, W: int, fov_up_deg, fov_down_deg,
                          beam_angles: torch.Tensor | None = None,
-                         beam_rows: bool = False, winner: str = "depth"):
+                         beam_rows: bool = False, winner: str = "depth",
+                         workspace: ZBufferWorkspace | None = None):
     """The z-buffer's winners in raster order, without assembling images.
 
     Returns ``(win_idx (H*W,) int32, depth (N,) f32)``: ``win_idx[p]`` is
@@ -258,7 +328,7 @@ def project_winner_order(points: torch.Tensor, valid: torch.Tensor, *,
     pix, key, depth, *_ = _pixel_keys(
         points, valid, fov_up_deg, fov_down_deg, beam_angles,
         H, W, beam_rows, winner)
-    return zbuffer_winners(pix, key, H * W), depth
+    return zbuffer_winners(pix, key, H * W, workspace=workspace), depth
 
 
 def reverse_project(image: RangeImage, *, fov_up_deg, fov_down_deg,

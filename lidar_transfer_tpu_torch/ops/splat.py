@@ -35,19 +35,20 @@ SAMPLES_PER_RAY = 8
 
 
 def _target_assemble(pos, tsdf_v, label_v, rem_v, valid, fov_up_deg,
-                     fov_down_deg, beam_angles, H, W, beam_rows, trunc):
+                     fov_down_deg, beam_angles, H, W, beam_rows, trunc,
+                     workspace=None):
     """Candidate z-buffer + winner-attribute fetch + zero-crossing output.
 
     The winners are ``range_project``'s (same ``_pixel_keys`` and
-    z-buffer); candidates tie on exactly equal depth towards the lowest
-    candidate index.
+    z-buffer, with the caller's ``workspace``); candidates tie on exactly
+    equal depth towards the lowest candidate index.
     Returns (range, label, remission, endpoints (H,W,3), mask), all (H,W).
     """
     P._check_beam_rows(beam_rows, beam_angles, H)
     pix, key, depth, uf, *_ = P._pixel_keys(
         pos, valid, fov_up_deg, fov_down_deg, beam_angles,
         H, W, beam_rows, "depth")
-    win = P.zbuffer_winners(pix, key, H * W)
+    win = P.zbuffer_winners(pix, key, H * W, workspace=workspace)
     has_flat = win >= 0
     g = torch.where(has_flat, win, 0).to(torch.int64)
     has = has_flat.reshape(H, W)
@@ -309,15 +310,17 @@ def _interp_candidates(rng_flat, pts_flat, valid_flat, label_flat,
 
 def assemble_candidate_parts(parts, *, fov_up_deg, fov_down_deg,
                              beam_angles, target_H, target_W,
-                             trunc: float):
+                             trunc: float, workspace=None):
     """Concatenate per-source candidate tuples (pos, t, tsdf, label, rem,
-    valid) and z-buffer them into the target grid."""
+    valid) and z-buffer them into the target grid (``workspace``: the
+    z-buffer's, see ``ops/projection.ZBufferWorkspace``)."""
     cat = [torch.cat([p[i] for p in parts]) for i in range(6)]
     pos, _, tsdf_v, label_v, rem_v, valid = cat
     return _target_assemble(
         pos, tsdf_v, label_v.to(torch.int32), rem_v.to(torch.float32),
         valid, fov_up_deg, fov_down_deg, beam_angles, target_H, target_W,
-        beam_rows=beam_angles is not None, trunc=trunc)
+        beam_rows=beam_angles is not None, trunc=trunc,
+        workspace=workspace)
 
 
 def splat_synthesize(state, spec, sources, *, target_H: int,
@@ -325,7 +328,7 @@ def splat_synthesize(state, spec, sources, *, target_H: int,
                      vol_origin, active_dims=None, beam_angles=None,
                      samples_per_ray: int = SAMPLES_PER_RAY,
                      attrs: str = "auto", label_probe: bool = False,
-                     interp=None):
+                     interp=None, workspace=None):
     """Synthesize a target-spec virtual scan from the fused sources.
 
     ``state``: the fused volume (read by ``attrs="volume"`` alone; None
@@ -340,6 +343,8 @@ def splat_synthesize(state, spec, sources, *, target_H: int,
     image order), the interior chord counts, the connectivity angle's
     tangent and the row gap chords bridge (``_interp_candidates``; their
     candidates follow every source's band candidates).
+    ``workspace``: the target z-buffer's scratch
+    (``ops/projection.ZBufferWorkspace``), kept by the caller.
     Returns (range, label, remission, endpoints (H,W,3), mask).
     """
     if attrs == "auto":
@@ -381,4 +386,4 @@ def splat_synthesize(state, spec, sources, *, target_H: int,
     return assemble_candidate_parts(
         parts, fov_up_deg=fov_up_deg, fov_down_deg=fov_down_deg,
         beam_angles=beam_angles, target_H=target_H, target_W=target_W,
-        trunc=float(spec.trunc_margin))
+        trunc=float(spec.trunc_margin), workspace=workspace)

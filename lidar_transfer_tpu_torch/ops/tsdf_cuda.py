@@ -8,6 +8,11 @@ state takes the plain version (``ops/tsdf.integrate``,
 kernel, which updates the state in place (where JAX donated the buffers)
 with the same float32 scalars as the plain version
 (``ops/tsdf.integrate_params``). Any other device raises.
+
+The integrate kernel reads the images column-major and packed
+(:func:`pack_columns`: one transposing copy of 12 B a pixel and image per
+call), so that the rows neighbouring voxels of a column read lie side by
+side in memory.
 """
 
 from __future__ import annotations
@@ -18,6 +23,23 @@ from lidar_transfer_tpu_torch import _build
 from lidar_transfer_tpu_torch.ops import tsdf as TS
 
 _IMAGE_DTYPES = (torch.float32, torch.int32, torch.float32)
+
+
+def pack_columns(depth_ims: torch.Tensor, label_ims: torch.Tensor,
+                 rem_ims: torch.Tensor) -> torch.Tensor:
+    """(S, H, W) depth f32, label i32 and remission f32 stacks -> one
+    contiguous (W, S, 3, H) float32 record, the labels as their bits:
+    ``out[u, s, 0]`` is column u of depth image s, ``out[u, s, 1]`` of its
+    labels (``.view(torch.int32)`` gives them back), ``out[u, s, 2]`` of
+    its remissions."""
+    S, H, W = depth_ims.shape
+    out = torch.empty((W, S, 3, H), dtype=torch.float32,
+                      device=depth_ims.device)
+    by_image = out.permute(2, 1, 3, 0)                 # (3, S, H, W) view
+    by_image[0] = depth_ims
+    by_image[1] = label_ims.view(torch.float32)
+    by_image[2] = rem_ims
+    return out
 
 
 def _check(name: str, state: TS.TSDFState, spec: TS.VolumeSpec, images,
@@ -82,9 +104,10 @@ def integrate_cuda(state: TS.TSDFState, spec: TS.VolumeSpec,
     dev, compact = _check("integrate_cuda", state, spec, images, v_tab)
     H, W = depth_im.shape
     X, Y, Z = spec.dims
+    packed = pack_columns(*(t[None] for t in images))
     _build.launch(
         "tsdf_integrate", "lt_tsdf_integrate",
-        *(t.data_ptr() for t in state), *(t.data_ptr() for t in images),
+        *(t.data_ptr() for t in state), packed.data_ptr(),
         None if v_tab is None else v_tab.data_ptr(), int(compact),
         H, W, X, Y, Z, int(x_offset),
         *_kernel_scalars(spec, fov_up_deg, fov_down_deg, obs_weight,
@@ -118,9 +141,10 @@ def integrate_chain_cuda(state: TS.TSDFState, spec: TS.VolumeSpec,
                           v_tab)
     S, H, W = depth_ims.shape
     X, Y, Z = spec.dims
+    packed = pack_columns(*images)
     _build.launch(
         "tsdf_integrate_chain", "lt_tsdf_integrate_chain",
-        *(t.data_ptr() for t in state), *(t.data_ptr() for t in images),
+        *(t.data_ptr() for t in state), packed.data_ptr(),
         None if v_tab is None else v_tab.data_ptr(), int(compact),
         S, H, W, X, Y, Z, int(x_offset),
         *_kernel_scalars(spec, fov_up_deg, fov_down_deg, obs_weight,

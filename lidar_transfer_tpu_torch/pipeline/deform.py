@@ -46,7 +46,6 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from lidar_transfer_tpu.utils.plyio import write_ply
 from lidar_transfer_tpu_torch.config import SensorSpec, TransferConfig
 from lidar_transfer_tpu_torch.ops import projection as P
 from lidar_transfer_tpu_torch.ops import tsdf as TS
@@ -60,6 +59,7 @@ from lidar_transfer_tpu_torch.ops.tsdf_cuda import (integrate_chain_cuda,
                                                     precompute_geometry_cuda)
 from lidar_transfer_tpu_torch.pipeline.multiscan import (ScanWindow,
                                                          merge_window)
+from lidar_transfer_tpu_torch.utils.plyio import write_ply
 
 _NOT_PORTED = "is not ported yet (ROADMAP.md, queue 1)"
 
@@ -148,6 +148,9 @@ class TransferEngine:
             self._interp_counts(ba, sba) if self.upsample_interp else (0, 0))
         self._interp_vspan = self._interp_span(sba)
         self._geoms: dict = {}
+        # the z-buffer's scratch, shared by every projection and target
+        # assemble of this engine: a frame allocates and initialises none
+        self._zbuf = P.ZBufferWorkspace(self.device)
         self._vol_state: TS.TSDFState | None = None
         self._pending_window: ScanWindow | None = None
         self._pending_fusion = None
@@ -310,7 +313,8 @@ class TransferEngine:
             vol_origin=origin, active_dims=active,
             beam_angles=self.t_beam_angles,
             attrs="auto" if len(sources) == 1 else self.mesh_attrs,
-            label_probe=self.band_label_probe, interp=interp)
+            label_probe=self.band_label_probe, interp=interp,
+            workspace=self._zbuf)
         return VirtualScan(range=rng, label=lbl, remission=rem, points=ends,
                            mask=mask, adaption=self.cfg.adaption)
 
@@ -350,7 +354,8 @@ class TransferEngine:
         t = self.target
         ri = P.range_project(
             pts, rem, lbl, valid, H=t.H, W=t.W, fov_up_deg=t.fov_up,
-            fov_down_deg=t.fov_down, beam_angles=self.t_beam_angles)
+            fov_down_deg=t.fov_down, beam_angles=self.t_beam_angles,
+            workspace=self._zbuf)
         back = P.reverse_project(ri, fov_up_deg=t.fov_up,
                                  fov_down_deg=t.fov_down,
                                  preserve_float=self.cfg.preserve_float)
@@ -370,7 +375,7 @@ class TransferEngine:
         ri = P.range_project(
             pts, rem, lbl, valid, H=self.source.H, W=self.source.W,
             fov_up_deg=t.fov_up, fov_down_deg=t.fov_down,
-            beam_angles=self.s_beam_angles)
+            beam_angles=self.s_beam_angles, workspace=self._zbuf)
         origin, active = self._frame_volume(pts, valid)
         return ri, origin, active
 
@@ -420,7 +425,7 @@ class TransferEngine:
         win, depth = P.project_winner_order(
             pts, valid, H=self.source.H, W=self.source.W,
             fov_up_deg=t.fov_up, fov_down_deg=t.fov_down,
-            beam_angles=self.s_beam_angles)
+            beam_angles=self.s_beam_angles, workspace=self._zbuf)
         has = win >= 0
         g = torch.where(has, win, 0).to(torch.int64)
         origin, active = self._frame_volume(pts, valid)
@@ -429,7 +434,8 @@ class TransferEngine:
             [(depth[g], pts[g], has, lbl[g].to(torch.int32), rem[g])],
             target_H=t.H, target_W=t.W, fov_up_deg=t.fov_up,
             fov_down_deg=t.fov_down, vol_origin=origin, active_dims=active,
-            beam_angles=self.t_beam_angles, attrs="image")
+            beam_angles=self.t_beam_angles, attrs="image",
+            workspace=self._zbuf)
         return out, origin
 
     # -------------------------------------------------------------- mesh
@@ -442,7 +448,7 @@ class TransferEngine:
             P.range_project(
                 pts_all[i], w.remissions[i], w.labels[i], w.valid[i],
                 H=s.H, W=s.W, fov_up_deg=s.fov_up, fov_down_deg=s.fov_down,
-                beam_angles=self.s_beam_angles)
+                beam_angles=self.s_beam_angles, workspace=self._zbuf)
             for i in range(w.points.shape[0]))
         return pts_all, ris
 

@@ -170,7 +170,8 @@ def run(iters: int = 50, plain_iters: int = 3, dims=DIMS, tag: str = ""):
     from lidar_transfer_tpu_torch.ops import tsdf as TS
     from lidar_transfer_tpu_torch.ops.tsdf_cuda import (
         integrate_cuda, precompute_geometry_cuda)
-    from lidar_transfer_tpu_torch.probes.timing import cuda_ms, max_diff
+    from lidar_transfer_tpu_torch.probes.timing import (cuda_ms, device_ms,
+                                                        max_diff)
 
     dev = torch.device("cuda")
     X, Y, Z = dims
@@ -182,8 +183,9 @@ def run(iters: int = 50, plain_iters: int = 3, dims=DIMS, tag: str = ""):
     fov = dict(fov_up_deg=FOV_UP, fov_down_deg=FOV_DOWN)
     rows = []
 
-    def row(name, ms, plain_ms=None, err=None):
-        rows.append(dict(probe="ablate", row=name, ms=ms, plain_ms=plain_ms,
+    def row(name, ms, plain_ms=None, err=None, d_ms=None):
+        rows.append(dict(probe="ablate", row=name, ms=ms, device_ms=d_ms,
+                         plain_ms=plain_ms,
                          gvox_s=nvox / (ms * 1e-3) / 1e9, max_abs_err=err))
         extra = "" if plain_ms is None else (
             f", plain {plain_ms:8.2f} ms, max |diff| {err:g}")
@@ -208,5 +210,6 @@ def run(iters: int = 50, plain_iters: int = 3, dims=DIMS, tag: str = ""):
         err = max_diff(probe_ablate(div, *args), ablate_plain(div, *args),
                        f"ablate {name}")
         torch.cuda.empty_cache()
-        row(name, ms, p_ms, err)
+        row(name, ms, p_ms, err,
+            device_ms(lambda: probe_ablate(div, *args), 3)[0])
     return rows

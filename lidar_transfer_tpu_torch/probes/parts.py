@@ -155,7 +155,8 @@ def run(iters: int = 50, plain_iters: int = 3, dims=DIMS, tag: str = ""):
     BX 2, ``full`` with one output, ``full`` at BX 4 and 8. Prints one line
     a row; -> the rows as dicts (kernel and plain ms, Gvoxel/s, the largest
     difference to the plain version)."""
-    from lidar_transfer_tpu_torch.probes.timing import cuda_ms, max_diff
+    from lidar_transfer_tpu_torch.probes.timing import (cuda_ms, device_ms,
+                                                        max_diff)
 
     dev = torch.device("cuda")
     X, Y, Z = dims
@@ -166,8 +167,9 @@ def run(iters: int = 50, plain_iters: int = 3, dims=DIMS, tag: str = ""):
                                             ("full", 3, 8)]
     for variant, n_out, bx in cases:
         kw = dict(Z=Z, n_out=n_out)
-        ms = cuda_ms(lambda: probe_parts(variant, params, dcol, lrcol, BX=bx,
-                                         **kw), iters)
+        call = lambda: probe_parts(variant, params, dcol, lrcol,  # noqa
+                                   BX=bx, **kw)
+        ms = cuda_ms(call, iters)
         if (variant, n_out) not in plain:
             plain[variant, n_out] = cuda_ms(
                 lambda: parts_plain(variant, params, dcol, lrcol, **kw),
@@ -178,6 +180,7 @@ def run(iters: int = 50, plain_iters: int = 3, dims=DIMS, tag: str = ""):
                        f"parts {name}")
         torch.cuda.empty_cache()
         rows.append(dict(probe="parts", row=name, ms=ms,
+                         device_ms=device_ms(call, 3)[0],
                          plain_ms=plain[variant, n_out],
                          gvox_s=nvox / (ms * 1e-3) / 1e9, max_abs_err=err))
         print(f"parts {name:22s}: kernel {ms:8.3f} ms "

@@ -34,6 +34,79 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def device_events(fn, iters: int, warmup: int = 2):
+    """The device operations (kernels, memsets, copies) that ``iters``
+    calls of ``fn`` issue, as ``torch.profiler`` events. A trace can lose
+    the records of its first few device operations (five of them, in a
+    process that has traced before, on the H100 this was written on), so
+    32 small fills and ``warmup`` calls run inside the trace ahead of a
+    synchronise and a marked range, and only operations that start in the
+    range are returned."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    mark = "lt_device_events_measured"
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(32):
+            torch.zeros(1, device="cuda")
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        with record_function(mark):
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+    events = prof.events()
+    ranges = [e.time_range for e in events
+              if e.name == mark and e.device_type == DeviceType.CPU]
+    if not ranges:
+        return []
+    return [e for e in events if e.device_type == DeviceType.CUDA
+            and e.name != mark
+            and ranges[0].start <= e.time_range.start <= ranges[0].end]
+
+
+def whole_trace(fn, iters: int, warmup: int = 2, attempts: int = 5):
+    """:func:`device_events` of ``iters`` calls of ``fn``, taken until two
+    traces hold the same number of operations, each operation's count a
+    multiple of ``iters`` (a trace that lost records fails one or the
+    other); -> the later of the two, or [] after ``attempts`` traces."""
+    seen = set()
+    for _ in range(attempts):
+        on_dev = device_events(fn, iters, warmup)
+        names = {}
+        for e in on_dev:
+            names[e.name] = names.get(e.name, 0) + 1
+        if not on_dev or any(n % iters for n in names.values()):
+            continue
+        if len(on_dev) in seen:
+            return on_dev
+        seen.add(len(on_dev))
+    return []
+
+
+def device_ms(fn, iters: int, warmup: int = 2):
+    """What the card itself spends on one call of ``fn``: the summed
+    durations of the device operations of ``iters`` calls
+    (:func:`whole_trace`) over ``iters``. The time between the operations
+    and the host's time to issue them are not in it, which is what tells
+    it from :func:`cuda_ms` for a call of a few microseconds.
+    -> (ms a call, device operations a call, {operation name: count a
+    call}); (None, 0, {}) when no trace was whole."""
+    on_dev = whole_trace(fn, iters, warmup)
+    if not on_dev:
+        return None, 0, {}
+    names = {}
+    for e in on_dev:
+        names[e.name] = names.get(e.name, 0) + 1
+    total_us = sum(e.time_range.elapsed_us() for e in on_dev)
+    return (total_us / 1e3 / iters, len(on_dev) // iters,
+            {k: n // iters for k, n in names.items()})
+
+
 def bf16_ulp(x):
     """One bf16 ulp at |x| (8 bits of mantissa), float32."""
     import torch

@@ -160,7 +160,7 @@ def run_alias(iters: int = 50, dims=DIMS, tag: str = ""):
     """probe_alias's modes at ``dims`` (three outputs bf16/int16/bf16,
     BX=2, BY=1024), each beside the plain fill of the same outputs. Prints
     one line a mode; -> the rows as dicts."""
-    from lidar_transfer_tpu_torch.probes.timing import cuda_ms
+    from lidar_transfer_tpu_torch.probes.timing import cuda_ms, device_ms
 
     dev = torch.device("cuda")
     bx, by = ALIAS_BLOCK
@@ -177,6 +177,8 @@ def run_alias(iters: int = 50, dims=DIMS, tag: str = ""):
         if err or len(out) != (4 if mode == "alias_any4" else 3):
             raise AssertionError(f"alias {mode}: outputs are not 1, 2, 3")
         rows.append(dict(probe="alias", row=mode, ms=ms, plain_ms=p_ms,
+                         device_ms=device_ms(lambda: alias_call(
+                             mode, state, BX=bx, BY=by), 3)[0],
                          gb_s=_gbs(nbytes, ms), max_abs_err=err))
         print(f"alias {mode:12s}: {ms:7.4f} ms ({_gbs(nbytes, ms):7.1f} "
               f"GB/s), PyTorch fill {p_ms:7.4f} ms {tag}", flush=True)

@@ -181,3 +181,36 @@ def test_cli_matches_jax_engine(dataset, tmp_path, capsys, stream):
         lbl = kitti.read_label_file(str(
             out / "sequences" / "00" / "labels" / f"{m['index']:06d}.label"))
         assert lbl.shape[0] == m["points_written"]
+
+
+@pytest.mark.parametrize("adaption,nscans", [("mergemesh", 1), ("cp", 1)])
+def test_engine_workspace_reused_over_frames_and_targets(dataset, adaption,
+                                                         nscans):
+    """Two engines (two targets, so two image sizes) that each keep one
+    z-buffer workspace over several frames equal the JAX engines frame by
+    frame, at the tolerances of ``_assert_scans_agree``; the workspace is
+    the engine's own and the same object on every frame."""
+    import dataclasses
+
+    _, seq, cap = dataset
+    cfg = dataclasses.replace(CFG, adaption=adaption, number_of_scans=nscans)
+    first = JM.min_start_index(nscans)
+    frames = list(range(first, JM.max_end_index(nscans, len(seq))))[:3]
+    assert len(frames) >= 2
+    seen = []
+    for target in (CROSS, SOURCE):
+        je = JD.TransferEngine(SOURCE, target, cfg, cap, fixed_bounds=True)
+        te = TD.TransferEngine(SOURCE, target, cfg, fixed_bounds=True,
+                               device="cpu")
+        ws = te._zbuf
+        seen.append(ws)
+        for idx in frames:
+            w = JM.load_window(seq, cfg, idx, cap)
+            tw = interop.window_from_numpy(w)
+            if adaption == "cp":
+                j, t = je.transfer(w)[0], te.transfer(tw)[0]
+            else:
+                j, t = je.transfer_fast(w), te.transfer_fast(tw)
+            _assert_scans_agree(j, t)
+            assert te._zbuf is ws
+    assert seen[0] is not seen[1]

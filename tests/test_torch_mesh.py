@@ -346,3 +346,17 @@ def test_cli_mesh_ply_matches_jax(dataset, tmp_path):
         assert abs(t["points_written"] - j["points_written"]) <= \
             1e-3 * SOURCE.H * SOURCE.W
         assert abs(t["triangles"] - j["triangles"]) <= 1e-3 * j["triangles"]
+
+
+def test_mesh_engine_workspace_reused_over_frames_and_targets(dataset):
+    """Two mesh engines (two targets) that each keep one z-buffer
+    workspace over their frames (S source projections and a target
+    assemble a frame) equal the JAX engines frame by frame, at the
+    tolerances of ``_assert_scans_agree``."""
+    for target in (CROSS, SOURCE):
+        je, te = _engines(dataset, target=target)
+        ws = te._zbuf
+        for idx in (1, 2, 3):
+            w, tw = _window(dataset, idx)
+            _assert_scans_agree(je.transfer_fast(w), te.transfer_fast(tw))
+            assert te._zbuf is ws

@@ -215,3 +215,75 @@ def test_mask_classes_and_transforms():
     np.testing.assert_allclose(
         TT.inverse_pose(torch.from_numpy(pose)).numpy(),
         np.asarray(JT.inverse_pose(jnp.asarray(pose))), atol=1e-6)
+
+
+@pytest.mark.parametrize("device", [None, "cpu"])
+def test_zbuffer_workspace_sequence_matches_winner_sort(device):
+    """One workspace through a sequence of image sizes and back (CPU path:
+    the plain version, the workspace accepted and left empty, made for
+    the CPU or for the device of its first call): every call equals the JAX ``_winner_sort`` winners bit for bit."""
+    rng = np.random.default_rng(21)
+    ws = TP.ZBufferWorkspace(device)
+    for npix, n in ((64 * 32, 3000), (32 * 32, 1500), (128 * 32, 6000),
+                    (64 * 32, 0), (64 * 32, 3000)):
+        pix = rng.integers(0, npix, n).astype(np.int32)
+        key = rng.uniform(0.5, 80.0, n).astype(np.float32)
+        if n:
+            src = rng.integers(0, n - 1, n // 4)
+            pix[src + 1], key[src + 1] = pix[src], key[src]
+            pix[rng.random(n) < 0.2] = npix
+        got = TP.zbuffer_winners(torch.from_numpy(pix),
+                                 torch.from_numpy(key), npix, workspace=ws)
+        np.testing.assert_array_equal(got.numpy(),
+                                      _jax_win_idx(pix, key, npix))
+    assert ws.allocations == 0          # nothing is kept for CPU tensors
+
+
+def test_zbuffer_workspace_one_pixel_and_invalid():
+    """All points in one pixel with equal keys: the lowest index wins; all
+    points invalid: every pixel empty (with a workspace, as without)."""
+    ws = TP.ZBufferWorkspace()
+    npix, n = 256, 500
+    pix = torch.full((n,), 17, dtype=torch.int32)
+    key = torch.full((n,), 7.5)
+    for w in (None, ws):
+        win = TP.zbuffer_winners(pix, key, npix, workspace=w)
+        assert int(win[17]) == 0 and int((win >= 0).sum()) == 1
+        win = TP.zbuffer_winners(torch.full((n,), npix, dtype=torch.int32),
+                                 key, npix, workspace=w)
+        assert int((win >= 0).sum()) == 0
+
+
+def test_zbuffer_workspace_rejects_wrong_device_dtype_and_type():
+    pix = torch.zeros(8, dtype=torch.int32)
+    key = torch.ones(8)
+    with pytest.raises(ValueError, match="ZBufferWorkspace of cuda"):
+        TP.zbuffer_winners(pix, key, 4,
+                           workspace=TP.ZBufferWorkspace("cuda"))
+    with pytest.raises(TypeError, match="int32 pix and float32 key"):
+        TP.zbuffer_winners(pix.long(), key, 4,
+                           workspace=TP.ZBufferWorkspace("cpu"))
+    with pytest.raises(TypeError, match="int32 pix and float32 key"):
+        TP.zbuffer_winners(pix, key.double(), 4,
+                           workspace=TP.ZBufferWorkspace("cpu"))
+    with pytest.raises(TypeError, match="not a ZBufferWorkspace"):
+        TP.zbuffer_winners(pix, key, 4, workspace=torch.empty(4))
+    with pytest.raises(ValueError, match="used on"):
+        TP.ZBufferWorkspace("cuda:1").scratch(4, torch.device("cuda:0"))
+
+
+def test_range_project_and_winner_order_take_a_workspace():
+    """range_project and project_winner_order with one workspace over two
+    image sizes equal the calls without one."""
+    rng = np.random.default_rng(5)
+    p, r, l, m = (torch.from_numpy(a) for a in _random_cloud(rng, 8000))
+    ws = TP.ZBufferWorkspace()
+    for H, W in ((16, 256), (8, 128), (16, 256)):
+        kw = dict(H=H, W=W, fov_up_deg=8.0, fov_down_deg=-22.0)
+        a = TP.range_project(p, r, l, m, **kw)
+        b = TP.range_project(p, r, l, m, workspace=ws, **kw)
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+        wa, da = TP.project_winner_order(p, m, **kw)
+        wb, db = TP.project_winner_order(p, m, workspace=ws, **kw)
+        assert torch.equal(wa, wb) and torch.equal(da, db)

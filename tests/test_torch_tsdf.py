@@ -137,3 +137,62 @@ def test_volume_spec_and_chunking():
     assert [a.dtype for a in s] == [torch.float32, torch.float32,
                                     torch.int32, torch.float32]
     assert float(s.tsdf.min()) == 1.0 and int(s.label.abs().max()) == 0
+
+
+@pytest.mark.parametrize("S,h,w", [(1, 16, 256), (3, 16, 256), (2, 13, 40),
+                                   (4, 128, 64)])
+def test_pack_columns_is_a_transpose(S, h, w):
+    """The kernel's column-major image record against a numpy transpose:
+    ``out[u, s, 0/1/2, v]`` is depth, label bits, remission of pixel
+    (v, u) of image s; contiguous float32; the labels come back exactly."""
+    from lidar_transfer_tpu_torch.ops.tsdf_cuda import pack_columns
+
+    rng = np.random.default_rng(S * 1000 + h)
+    depth = rng.uniform(0, 50, (S, h, w)).astype(np.float32)
+    label = rng.integers(-5, 70000, (S, h, w)).astype(np.int32)
+    rem = rng.uniform(0, 1, (S, h, w)).astype(np.float32)
+    out = pack_columns(*(torch.from_numpy(a) for a in (depth, label, rem)))
+    assert out.shape == (w, S, 3, h) and out.dtype == torch.float32
+    assert out.is_contiguous()
+    want = np.stack([depth, label.view(np.float32), rem], axis=1)
+    want = want.transpose(3, 0, 1, 2)            # (S,3,H,W) -> (W,S,3,H)
+    np.testing.assert_array_equal(out.numpy().view(np.int32),
+                                  np.ascontiguousarray(want).view(np.int32))
+    np.testing.assert_array_equal(
+        out[:, :, 1].contiguous().view(torch.int32).numpy(),
+        label.transpose(2, 0, 1))
+    # non-contiguous inputs (one image of a stack) pack alike
+    one = pack_columns(*(torch.from_numpy(a)[S - 1][None]
+                         for a in (depth, label, rem)))
+    assert torch.equal(one.view(torch.int32),
+                       out[:, S - 1:S].contiguous().view(torch.int32))
+
+
+def test_integrate_chain_matches_xla_sequence(inputs):
+    """The port's chain (through the wrapper, CPU path) == the JAX
+    ``ops/tsdf.integrate`` applied image by image, reset on the first:
+    label and weight exact, tsdf and rem within 1e-5."""
+    from lidar_transfer_tpu_torch.ops.tsdf_cuda import integrate_chain_cuda
+
+    depth, label, rem, prior = inputs
+    rng = np.random.default_rng(17)
+    depths = np.stack([depth, np.roll(depth, 3, axis=1),
+                       (depth * rng.uniform(0.9, 1.1, depth.shape))
+                       .astype(np.float32)])
+    labels = np.stack([label, label, np.roll(label, 1, axis=0)])
+    rems = np.stack([rem, rem[::-1].copy(), rem])
+    spec = _spec()
+    j = JS.TSDFState(*(jnp.asarray(a) for a in prior))
+    for s in range(3):
+        j = JS.integrate(j, spec, jnp.asarray(depths[s]),
+                         jnp.asarray(labels[s]), jnp.asarray(rems[s]),
+                         reset=s == 0, **FOV)
+    t = integrate_chain_cuda(
+        interop.state_from_numpy(prior), _port(spec),
+        *(torch.from_numpy(a) for a in (depths, labels, rems)), **FOV)
+    j, t = interop.to_numpy(j), interop.to_numpy(t)
+    np.testing.assert_array_equal(t.label, j.label)
+    np.testing.assert_array_equal(t.weight, j.weight)
+    np.testing.assert_allclose(t.tsdf, j.tsdf, atol=1e-5)
+    np.testing.assert_allclose(t.rem, j.rem, atol=1e-5)
+    assert (t.tsdf < 1).sum() > 500
