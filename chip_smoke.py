@@ -17,7 +17,13 @@
    images of 128 rows; S = 1, 2, 3, 4 and 6; carried mode with and without
    changes; an x_offset slab with active dims smaller than the dims; state
    arrays off their alignment; a column count the warps do not divide);
-   the geometry table's rows equal on >= 1 - 1e-6 of voxels; the three
+   the geometry table's fast mode equal to its exact mode byte for byte
+   (HDL64 and HDL32 fovs, 128 rows, a shifted origin, a volume 9 m under
+   the sensor, 2048x2048x208, and 2047x2047x206 at a pointer off its
+   alignment) and both equal to the
+   plain rows on >= 1 - 1e-6 of voxels; the confusion counts exact in 60
+   more cases (C = 260, 20, 1, 37, 1500; N = 0, 1, 131072, 2^20; skewed and
+   uniform labels; inputs off their alignment); the three
    probe kernels at 64x256x256 in every variant, int16 labels exact and
    bf16 outputs within one bf16 ulp, the writes exact
    (``kernel_checks``).
@@ -123,12 +129,115 @@ def _compare_states(torch, a, b, what: str) -> float:
     return worst
 
 
+def _check_geometry_kernel(torch, kernels):
+    """Phase 1 for the geometry table: the kernel's fast mode against its
+    exact mode byte for byte (256x256x208 with the HDL64 and HDL32 fovs, 128
+    rows, a shifted origin and one 9 m under the sensor, where pz passes 0
+    at twice the rounding; the reference 2048x2048x208; 2047x2047x206
+    at a pointer off its alignment), and both against the plain version at
+    256x256x208. Prints the share of voxels the fast mode evaluated
+    exactly. -> the HDL64 table at 256x256x208."""
+    from lidar_transfer_tpu_torch.ops import tsdf as TS
+    from lidar_transfer_tpu_torch.ops.tsdf_cuda import \
+        precompute_geometry_cuda
+
+    dev = torch.device("cuda")
+    hdl64, hdl32 = (3.0, -25.0), (10.67, -30.67)
+    small, near = (256, 256, 208), (-6.4, -6.4, -5.0)
+    count = torch.zeros(1, dtype=torch.int64, device=dev)
+    first, row_err = None, 0
+    # (dims, origin, fov, H, the table 3 bytes off its alignment)
+    for dims, origin, fov, H, off in (
+            (small, near, hdl64, 64, False),
+            (small, near, hdl32, 32, False),
+            (small, near, hdl64, 128, False),
+            (small, (3.1, -7.77, -1.234), hdl64, 64, False),
+            (small, (-6.4, -6.4, -9.0), hdl64, 64, False),
+            ((2048, 2048, 208), (-50.0, -50.0, -5.0), hdl64, 64, False),
+            ((2047, 2047, 206), (-50.0, -50.0, -5.0), hdl64, 64, True)):
+        spec = TS.VolumeSpec(origin, 0.05, dims)
+        n = spec.num_voxels
+        out = None
+        if off:
+            out = torch.empty(n + 3, dtype=torch.int8, device=dev)[3:]
+            out = out.view(dims)
+            check(out.data_ptr() % 16 != 0, "the table is not misaligned")
+        count.zero_()
+        fast = precompute_geometry_cuda(spec, *fov, H, device=dev, out=out,
+                                        exact_count=count)
+        exact = precompute_geometry_cuda(spec, *fov, H, device=dev,
+                                         exact=True)
+        torch.cuda.synchronize()
+        what = (f"geometry table {dims} origin {origin} fov {fov} H={H}"
+                f"{' misaligned' if off else ''}")
+        differ = int((fast != exact).sum())
+        print(f"{what}: fast mode differs from exact mode at {differ} of "
+              f"{n} voxels; evaluated exactly {int(count) / n:.2e} of them; "
+              f"in FOV {float((exact >= 0).float().mean()):.4f}")
+        check(differ == 0 and torch.equal(fast, exact),
+              f"{what}: fast mode != exact mode (byte for byte)")
+        check(int(count) < 0.01 * n, f"{what}: the exact path took 1 % of "
+              "the voxels or more")
+        if dims == small:
+            plain = TS.precompute_geometry(spec, *fov, H, device=dev)
+            bad_f, bad_e = (int((t != plain).sum()) for t in (fast, exact))
+            row_err = max(row_err, int((fast.int() - plain.int()).abs()
+                                       .max()))
+            print(f"{what}: against the plain table, fast mode "
+                  f"{bad_f} mismatches, exact mode {bad_e}")
+            check(bad_f <= bad_e and bad_f <= n * 1e-6,
+                  f"{what}: geometry table != plain table")
+            del plain
+        if first is None:
+            first = fast
+        del fast, exact, out
+        torch.cuda.empty_cache()
+    kernels["tsdf_geometry"] = dict(
+        route="cuda", source="lidar_transfer_tpu_torch/csrc/tsdf_geometry.cu",
+        replaces="lidar_transfer_tpu/ops/tsdf_pallas.py:436",
+        max_abs_err=row_err)
+    return first
+
+
+def _check_confusion_cases(torch, rng) -> None:
+    """Phase 1 for the confusion counts, exact against the plain version:
+    C = 260, 20, 1 and 37, and 1500 (over the classes whose diagonal a
+    block keeps), N = 0, 1, 131,072 and 2^20, skewed and uniform labels,
+    and inputs off their alignment."""
+    from lidar_transfer_tpu_torch.metrics import confusion as TF
+    from lidar_transfer_tpu_torch.probes.cases import confusion_labels
+
+    dev = torch.device("cuda")
+    n_cases = 0
+    for C in (260, 20, 1, 37, 1500):
+        for m in (0, 1, 131072, 1 << 20):
+            for skewed in (True, False):
+                p, t = (torch.from_numpy(a).to(dev) for a in
+                        confusion_labels(rng, m, C, skewed, stray=True))
+                got = TF.confusion_matrix(p, t, C)
+                ref = TF.confusion_scatter(p, t, C)
+                torch.cuda.synchronize()
+                check(torch.equal(got, ref), f"confusion C={C} N={m} "
+                      f"{'skewed' if skewed else 'uniform'} != plain")
+                n_cases += 1
+                if m > 1:
+                    got = TF.confusion_matrix(p[1:], t[1:], C)
+                    check(torch.equal(got, TF.confusion_scatter(
+                        p[1:], t[1:], C)), f"confusion C={C} N={m - 1} off "
+                        "its alignment != plain")
+                    n_cases += 1
+    print(f"confusion: {n_cases} cases (C = 260, 20, 1, 37, 1500; N = 0, 1, "
+          "131072, 2^20 and one less off their alignment; skewed and "
+          "uniform labels) equal to plain")
+
+
 def _check_fusion_kernels(torch, rng, kernels) -> None:
-    """Phase 1 for the chain, the compact state and the geometry table at
-    256x256x208, S=3, against their plain versions."""
+    """Phase 1 for the geometry table (``_check_geometry_kernel``) and,
+    with its table at 256x256x208, the chain and the compact state, S=3,
+    against their plain versions."""
     from lidar_transfer_tpu_torch.ops import tsdf as TS
     from lidar_transfer_tpu_torch.ops.tsdf_cuda import (
-        integrate_chain_cuda, integrate_cuda, precompute_geometry_cuda)
+        integrate_chain_cuda, integrate_cuda)
 
     dev = torch.device("cuda")
     spec = TS.VolumeSpec((-6.4, -6.4, -5.0), 0.05, (256, 256, 208))
@@ -140,19 +249,7 @@ def _check_fusion_kernels(torch, rng, kernels) -> None:
         depth, rng.integers(0, 4, (S, H, W)).astype(np.int32),
         rng.random((S, H, W)).astype(np.float32))]
 
-    table = precompute_geometry_cuda(spec, 3.0, -25.0, H, device=dev)
-    plain = TS.precompute_geometry(spec, 3.0, -25.0, H, device=dev)
-    torch.cuda.synchronize()
-    bad = int((table != plain).sum())
-    row_err = int((table.int() - plain.int()).abs().max())
-    print(f"geometry table {spec.dims}: row mismatches {bad} of "
-          f"{table.numel()}, max |row diff| {row_err}, in FOV "
-          f"{float((plain >= 0).float().mean()):.4f}")
-    check(bad <= table.numel() * 1e-6, "geometry table != plain table")
-    kernels["tsdf_geometry"] = dict(
-        route="cuda", source="lidar_transfer_tpu_torch/csrc/tsdf_geometry.cu",
-        replaces="lidar_transfer_tpu/ops/tsdf_pallas.py:436",
-        max_abs_err=row_err)
+    table = _check_geometry_kernel(torch, kernels)
 
     worst = 0.0
     for compact in (False, True):
@@ -555,6 +652,7 @@ def kernel_checks(torch, kernels) -> tuple:
         route="cuda", source="lidar_transfer_tpu_torch/csrc/confusion.cu",
         replaces="lidar_transfer_tpu/metrics/confusion.py:73",
         max_abs_err=err)
+    _check_confusion_cases(torch, rng)
 
     spec = TS.VolumeSpec((-6.4, -6.4, -5.0), 0.05, (256, 256, 208))
     depth = (rng.uniform(1.0, 12.0, (64, 2048))
@@ -625,6 +723,7 @@ def main() -> int:
                                   C)
     call = lambda: TP.zbuffer_winners(pix_t, key_t, npix,  # noqa: E731
                                       workspace=ws)
+    small = {"zbuffer": call}
     z_dev, z_ops, z_names = device_ms(call, 50)
     kernels["zbuffer"].update(
         ms=cuda_ms(call, 200), device_ms=z_dev,
@@ -638,8 +737,14 @@ def main() -> int:
           "workspace issues more than two device operations or allocates")
     cb = bounds.confusion(m, C)
     call = lambda: TF.confusion_matrix(pred_t, tgt_t, C)  # noqa: E731
+    small["confusion"] = call
+    c_dev, c_ops, c_names = device_ms(call, 50)
+    print(f"confusion N={m} C={C}: {c_ops:.1f} device operations a call "
+          f"({c_names}) {tag}")
+    check(c_ops <= 2, "a confusion call takes more than two device "
+          "operations")
     kernels["confusion"].update(
-        ms=cuda_ms(call, 200), device_ms=device_ms(call, 50)[0],
+        ms=cuda_ms(call, 200), device_ms=c_dev,
         plain_ms=cuda_ms(lambda: TF.confusion_scatter(pred_t, tgt_t, C),
                          50),
         bound_ms=cb.ms, bound_by=cb.by, library_ms=c_lib)
@@ -662,6 +767,11 @@ def main() -> int:
     check(not any(m == "lidar_transfer_tpu"
                   or m.startswith("lidar_transfer_tpu.")
                   for m in sys.modules), "the port imported the JAX package")
+    for name, call in small.items():
+        if kernels[name]["device_ms"] is None:
+            # every trace of it lost records above: once more, now that
+            # the process has traced the paths
+            kernels[name]["device_ms"] = device_ms(call, 50)[0]
     rows = []
     for name, k in kernels.items():
         k.setdefault("library_ms", None)
@@ -791,7 +901,7 @@ def _kernel_cases(torch, kernels, tag) -> None:
     for kernel, case in (
             ("tsdf_integrate", f"single {dims} f32 reset no weight, table"),
             ("tsdf_integrate_chain", f"chain S=3 {dims} f32, table"),
-            ("tsdf_geometry", f"geometry table {dims}")):
+            ("tsdf_geometry", f"geometry table {dims} fast")):
         r = rows[case]
         kernels[kernel].update(ms=r["ms"], device_ms=r["device_ms"],
                                bound_ms=r["bound_ms"],
@@ -801,6 +911,21 @@ def _kernel_cases(torch, kernels, tag) -> None:
     if empty and z:
         print(f"zbuffer device time {z:.5f} ms = {z / empty:.2f} x an empty "
               f"kernel launch's {empty:.5f} ms (aim: within 3 x) {tag}")
+    c = kernels["confusion"]
+    if empty and c["device_ms"]:
+        # the bound lies under an empty launch, the floor of any kernel
+        print(f"confusion device time {c['device_ms']:.5f} ms = "
+              f"{c['device_ms'] / empty:.2f} x an empty kernel launch's "
+              f"{empty:.5f} ms, the floor "
+              f"({max(c['bound_ms'], empty):.5f} ms); share of "
+              f"the bytes' bound "
+              f"{c['bound_ms'] / c['device_ms']:.3f} {tag}")
+    g = {m: rows[f"geometry table {dims} {m}"]["device_ms"]
+         for m in ("fast", "exact")}
+    if all(g.values()):
+        print(f"geometry table {dims}: fast mode {g['fast']:.4f} ms, exact "
+              f"mode (the kernel before) {g['exact']:.4f} ms, "
+              f"{g['exact'] / g['fast']:.2f} x {tag}")
 
 
 def _main_path(torch, work, kernels, tag, per_frame):
@@ -1088,12 +1213,15 @@ def _mesh_path(torch, work, kernels, tag, per_frame):
     del compact_state
     g_ms = cuda_ms(lambda: precompute_geometry_cuda(
         spec, HDL64.fov_up, HDL64.fov_down, HDL64.H, device=dev), 10)
+    ge_ms = cuda_ms(lambda: precompute_geometry_cuda(
+        spec, HDL64.fov_up, HDL64.fov_down, HDL64.H, device=dev,
+        exact=True), 10)
     gp_ms = cuda_ms(lambda: TS.precompute_geometry(
         spec, HDL64.fov_up, HDL64.fov_down, HDL64.H, device=dev), 2,
         warmup=1)
     kernels["tsdf_geometry"].update(ms=g_ms, plain_ms=gp_ms)
-    print(f"geometry table {spec.dims}: kernel {g_ms:.3f} ms, plain "
-          f"{gp_ms:.1f} ms {tag}")
+    print(f"geometry table {spec.dims}: kernel {g_ms:.3f} ms (its exact "
+          f"mode {ge_ms:.3f} ms), plain {gp_ms:.1f} ms {tag}")
     del state, eng
     torch.cuda.empty_cache()
     vol = TD.TransferEngine(HDL64, hdl32, cfg, fixed_bounds=True,

@@ -357,3 +357,137 @@ def precompute_geometry(spec: VolumeSpec, fov_up_deg, fov_down_deg, H: int,
         in_fov, row = _voxel_rows(depth, pz, c, H)
         blk.copy_(torch.where(in_fov, row, -1))
     return out
+
+
+# --- the decision rule of the fast geometry kernel (csrc/tsdf_geometry.cu)
+
+#: pitches beyond this have no safe interval (tan grows without bound)
+_EDGE_PITCH_CAP = 1.55
+#: relative error of the kernel's estimate pz * rsqrtf(pxy) of tan(pitch),
+#: pz the exact expression's own: rsqrtf 2 ulp, the product half an ulp,
+#: the stored edge half an ulp, stated as 4 ulp
+ESTIMATE_REL_ERR = 4 * 2.0 ** -23
+#: absolute error of the estimate in units of the least distance of two
+#: edges in tan space: away from the sensor a lane of the kernel takes its
+#: 16 estimates as t0 + j * dt with dt at most that distance, 8 ulp of at
+#: most 16 * dt
+ESTIMATE_STEP_ERR = 16 * 8 * 2.0 ** -23
+#: steps past the last interval a lane of the kernel can take
+EDGE_PADDING = 16
+
+
+def edge_min_gap(hi: np.ndarray) -> float:
+    """The least distance of two edges between the caps, from the ``hi`` of
+    :func:`geometry_edges`, as the kernel computes it; 0 with fewer than
+    two edges."""
+    gaps = np.diff(hi[1:-2].astype(np.float64))
+    return float(gaps.min()) if gaps.size else 0.0
+
+
+def estimate_walk_err(prm: IntegrateParams, Z: int, gap: float) -> float:
+    """The absolute error in tan space of an estimate taken as t0 + j * dt
+    in a column whose dt = vox / r_xy is at most ``gap``:
+    ``ESTIMATE_STEP_ERR * gap`` for the sum itself, and for the roundings
+    of the exact pz at the lane's first voxel and at this one (which the
+    sum does not see) 2 ulp of the volume's largest |height| over r_xy,
+    that is times ``gap / vox``."""
+    oz, vox = np.float64(prm.oz), np.float64(prm.vox)
+    top = max(abs(oz), abs(oz + Z * vox), Z * vox)
+    return float((ESTIMATE_STEP_ERR
+                  + 2.0 * np.spacing(np.float32(top)) / vox) * gap)
+
+
+def geometry_edges(prm: IntegrateParams, H: int, Z: int):
+    """The intervals of tan(pitch) on which the geometry table is constant,
+    for the fast mode of the geometry kernel: -> (lo, hi, val), float32,
+    float32 and int8 arrays of one entry an interval, in rising order.
+    A voxel whose estimate t of tan(pitch) satisfies ``lo[i] < t < hi[i]``
+    has the table value ``val[i]`` (its image row, -1 out of FOV) whatever
+    the last bits of the exact expression do; between ``hi[i]`` and
+    ``lo[i + 1]`` lies the guard band of an edge, where the exact
+    expression decides.
+
+    The edges are the H - 1 pitches where the row changes, the two FOV
+    limits (tested on the pitch itself, so edges of their own) and the two
+    caps at +-1.55 rad, beyond which nothing is safe; all from the float32
+    scalars the exact expression uses, in float64. The band around an edge
+    at pitch p, T = tan p: in pitch ``2.4e-7 * fov`` (the float32 roundings
+    of the row expression) ``+ 4.8e-7`` (asin, 4 ulp) ``+ 2.4e-7 |T|`` (the
+    exact ratio pz / depth) ``+ 4.8e-7 |T|`` (the estimate,
+    ``ESTIMATE_REL_ERR``); in tan space that times ``1 + T * T``, plus
+    :func:`estimate_walk_err` at the least distance of two edges (``Z``,
+    the volume's height in voxels, enters there); the band is twice the
+    sum; ``lo`` and ``hi`` are rounded away from their edges."""
+    fov_up, fov_down, fda, fov = (float(v) for v in (
+        prm.fov_up, prm.fov_down, prm.fov_down_abs, prm.fov))
+    k = np.arange(1, H, dtype=np.float64)
+    pitches = np.concatenate([fov * (1.0 - k / H) - fda, [fov_up, fov_down]])
+    pitches = pitches[np.abs(pitches) < _EDGE_PITCH_CAP]
+    pitches = np.unique(np.concatenate(
+        [pitches, [-_EDGE_PITCH_CAP, _EDGE_PITCH_CAP]]))
+    T = np.tan(pitches)
+    delta = 2.4e-7 * fov + 4.8e-7 + (2.4e-7 + 4.8e-7) * np.abs(T)
+    inner = np.diff(T[1:-1])
+    step = estimate_walk_err(prm, Z,
+                             1.1 * inner.min() if inner.size else 0.0)
+    band = 2.0 * (delta * (1.0 + T * T) + step)
+    up32 = lambda v: np.nextafter(  # noqa: E731
+        v.astype(np.float32), np.float32(np.inf))
+    down32 = lambda v: np.nextafter(  # noqa: E731
+        v.astype(np.float32), np.float32(-np.inf))
+    n = len(T) + 1
+    lo = np.full(n, np.inf, np.float32)      # the outer two: never safe
+    hi = np.full(n, np.inf, np.float32)
+    lo[1:-1] = up32(T[:-1] + band[:-1])
+    hi[:-1] = down32(T - band)
+    mid = np.zeros(n)
+    mid[1:-1] = 0.5 * (pitches[:-1] + pitches[1:])
+    v = (1.0 - (mid + fda) / fov) * H
+    row = np.clip(np.floor(v), 0, H - 1)
+    val = np.where((mid <= fov_up) & (mid >= fov_down), row, -1)
+    val[[0, -1]] = -1
+    return lo, hi, val.astype(np.int8)
+
+
+def geometry_by_rule(spec: VolumeSpec, fov_up_deg, fov_down_deg, H: int,
+                     origin=None, perturb: torch.Tensor | None = None,
+                     shift: torch.Tensor | None = None, walk: bool = False,
+                     exact: torch.Tensor | None = None):
+    """The fast geometry kernel's decision rule in plain PyTorch, for the
+    tests: the estimate ``pz * rsqrt(pxy)`` against
+    :func:`geometry_edges`, the exact expression
+    (:func:`precompute_geometry`) wherever the estimate is not safely
+    inside an interval. ``perturb``, an (X,Y,Z) float32 tensor of relative
+    errors, is multiplied into the estimate as ``1 + perturb``; ``shift``,
+    one of absolute errors, is added to it. ``walk`` takes the estimates
+    as a lane of the kernel does where dt = vox / r_xy is at most the
+    least distance of two edges: t0 + j * dt, one rounding, from the
+    estimate t0 at the first of each 16 voxels along z. ``exact`` is
+    :func:`precompute_geometry`'s table where the caller has it (two CPU
+    runs of it may differ in the last bit of an asin, by how the threads
+    split the volume).
+    -> (the int8 table, the bool mask of voxels decided exactly)."""
+    prm = integrate_params(spec, fov_up_deg, fov_down_deg, origin=origin)
+    lo, hi, val = (torch.from_numpy(a)
+                   for a in geometry_edges(prm, H, spec.dims[2]))
+    c = _scalars(prm, "cpu")
+    px, py, pz, _ = _voxel_positions(spec.dims, 0, c)
+    rinv = torch.rsqrt(px * px + py * py)
+    t = pz * rinv
+    if walk:
+        j = torch.arange(spec.dims[2]) % 16
+        dt = c["vox"] * rinv
+        t0 = pz[..., torch.arange(spec.dims[2]) - j] * rinv
+        lane = (j.double() * dt.double() + t0.double()).float()
+        t = torch.where(dt <= edge_min_gap(hi.numpy()), lane, t)
+    if perturb is not None:
+        t = t * (1.0 + perturb)
+    if shift is not None:
+        t = t + shift
+    # the smallest i with t < hi[i]; a NaN estimate is safe nowhere
+    i = torch.bucketize(torch.nan_to_num(t, nan=0.0), hi[:-1], right=True)
+    safe = (t > lo[i]) & (t < hi[i])
+    if exact is None:
+        exact = precompute_geometry(spec, fov_up_deg, fov_down_deg, H,
+                                    origin=origin)
+    return torch.where(safe, val[i], exact), ~safe

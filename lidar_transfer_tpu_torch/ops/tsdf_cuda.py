@@ -154,10 +154,22 @@ def integrate_chain_cuda(state: TS.TSDFState, spec: TS.VolumeSpec,
 
 
 def precompute_geometry_cuda(spec: TS.VolumeSpec, fov_up_deg, fov_down_deg,
-                             H: int, origin=None,
-                             device="cuda") -> torch.Tensor:
+                             H: int, origin=None, device="cuda", *,
+                             exact: bool = False,
+                             out: torch.Tensor | None = None,
+                             exact_count: torch.Tensor | None = None
+                             ) -> torch.Tensor:
     """(X,Y,Z) int8 row table of a fixed placement, -1 out of FOV (see
-    ``ops/tsdf.precompute_geometry``)."""
+    ``ops/tsdf.precompute_geometry``).
+
+    On the card the kernel's fast mode decides a voxel from an estimate of
+    tan(pitch) against the intervals of ``ops/tsdf.geometry_edges`` and
+    evaluates the exact expression only in the guard bands; ``exact=True``
+    selects the mode that evaluates it at every voxel (what the checks hold
+    the fast mode against; nothing falls back to it). ``out``, a contiguous
+    int8 tensor of ``spec.dims`` on the device (at any byte alignment),
+    receives the table; ``exact_count``, a one-element int64 tensor on the
+    device, is increased by the voxels the fast mode evaluated exactly."""
     device = torch.device(device)
     if device.type == "cpu":
         return TS.precompute_geometry(spec, fov_up_deg, fov_down_deg, H,
@@ -167,12 +179,30 @@ def precompute_geometry_cuda(spec: TS.VolumeSpec, fov_up_deg, fov_down_deg,
     if not 0 < H <= 128:
         raise ValueError(f"precompute_geometry_cuda: H must be in "
                          f"[1, 128], got {H}")
-    v_tab = torch.empty(spec.dims, dtype=torch.int8, device=device)
+    if out is None:
+        out = torch.empty(spec.dims, dtype=torch.int8, device=device)
+    elif (out.device.type != "cuda" or out.dtype != torch.int8
+            or not out.is_contiguous()
+            or tuple(out.shape) != tuple(spec.dims)):
+        raise ValueError(f"precompute_geometry_cuda: out must be a "
+                         f"contiguous int8 {spec.dims} tensor on {device}")
+    if exact_count is not None and (
+            exact_count.device != out.device or exact_count.numel() != 1
+            or exact_count.dtype != torch.int64):
+        raise ValueError("precompute_geometry_cuda: exact_count must be a "
+                         f"one-element int64 tensor on {out.device}")
     prm = TS.integrate_params(spec, fov_up_deg, fov_down_deg,
                               origin=origin)
+    edges, n = (None, None, None), 0
+    if not exact:
+        edges = TS.geometry_edges(prm, H, spec.dims[2])   # alive for the call
+        n = len(edges[0])
     X, Y, Z = spec.dims
     _build.launch(
-        "tsdf_geometry", "lt_tsdf_geometry", v_tab.data_ptr(), H, X, Y, Z,
+        "tsdf_geometry", "lt_tsdf_geometry", out.data_ptr(), H, X, Y, Z,
         prm.ox, prm.oy, prm.oz, prm.vox, prm.fov_up, prm.fov_down,
-        prm.fov_down_abs, prm.fov, _build.stream_handle(device))
-    return v_tab
+        prm.fov_down_abs, prm.fov, int(exact),
+        *(None if a is None else a.ctypes.data for a in edges), n,
+        None if exact_count is None else exact_count.data_ptr(),
+        _build.stream_handle(out.device))
+    return out

@@ -86,7 +86,9 @@ def integrate(dims, *, compact: bool, reset: bool = True,
 
 def geometry(dims) -> Bound:
     """Row 2: one int8 row a voxel written; a voxel's range, sqrt, division,
-    asin and row (18 operations, as :func:`integrate_flops` counts them)."""
+    asin and row (18 operations, as :func:`integrate_flops` counts them;
+    the kernel's fast mode does without most of them, the function's
+    definition does not)."""
     nvox = dims[0] * dims[1] * dims[2]
     return bound(nvox, nvox * 18)
 

@@ -1,7 +1,8 @@
-"""Every case of the TSDF integrate, its chain and the z-buffer, timed on
-the card beside its bound.
+"""Every case of the TSDF integrate, its chain, the geometry table, the
+confusion counts and the z-buffer, timed on the card beside its bound.
 
     python -m lidar_transfer_tpu_torch.probes.cases [volume|small|frame ...]
+                                                    [--only TEXT]
                                                     [--out FILE.json]
 
 Times, at the reference operating point (2048x2048x208 voxels of 0.05 m,
@@ -16,9 +17,14 @@ padded points):
           the table at 2048x2048x206, a Z the vector width does not divide,
           and at 2047x2047x206, where the last run ends inside a vector
           and the kernel takes its one-voxel-a-lane variant; the geometry
-          table;
-  small   the confusion counts; the z-buffer without a workspace and with
-          one; an empty kernel launch;
+          table in its fast and its exact mode at each of those four sizes
+          (a tree whose kernel has one mode gives that one);
+  small   the confusion counts at C = 260 and 20, skewed and uniform
+          labels, N = 131,072 and 2^20; the z-buffer without a workspace
+          and with one; an empty kernel launch (with
+          ``LT_NVCC_EXTRA=-DLT_CONFUSION_CLUSTER=16``, or ``=8``, in the
+          environment the confusion cases time the kernel's one-cluster
+          variant, ``csrc/confusion.cu``, which was measured and not kept);
   frame   three mergemesh frames (HDL64 to HDL32, ``transfer_fast``): the
           device operations they issue.
 
@@ -48,8 +54,31 @@ SMALL_ORIGIN = (-25.6, -25.6, -6.4)
 VOXEL = 0.05
 
 
-def measure(groups=GROUPS) -> list[dict]:
-    """Run the cases of ``groups`` on the card; -> one dict a case."""
+def confusion_labels(rng, n: int, n_classes: int, skewed: bool,
+                     ids=None, stray: bool = False):
+    """(pred, target) int32 arrays of ``n`` samples for the confusion
+    counts. Skewed: pred from 7 ids (``ids``, else drawn), 80 % of the
+    targets equal to it, the rest uniform; else both uniform. ``stray``
+    lets skewed targets fall up to 3 outside [0, n_classes) and sets 2 %
+    of the preds to -1."""
+    import numpy as np
+
+    if not skewed:
+        return (rng.integers(0, n_classes, n).astype(np.int32),
+                rng.integers(0, n_classes, n).astype(np.int32))
+    ids = rng.integers(0, n_classes, 7) if ids is None else ids
+    pred = rng.choice(ids, n).astype(np.int32)
+    other = (rng.integers(-3, n_classes + 3, n) if stray
+             else rng.integers(0, n_classes, n))
+    tgt = np.where(rng.random(n) < 0.8, pred, other).astype(np.int32)
+    if stray:
+        pred[rng.random(n) < 0.02] = -1
+    return pred, tgt
+
+
+def measure(groups=GROUPS, only: str = "") -> list[dict]:
+    """Run the cases of ``groups`` whose name contains ``only`` on the
+    card; -> one dict a case."""
     import numpy as np
     import torch
 
@@ -65,6 +94,8 @@ def measure(groups=GROUPS) -> list[dict]:
     rows = []
 
     def case(name, fn, bound, iters, dev_iters, note=""):
+        if only not in name:
+            return
         ms = timing.cuda_ms(fn, iters)
         d_ms, ops, names = timing.device_ms(fn, dev_iters)
         rows.append(dict(case=name, ms=ms, device_ms=d_ms, device_ops=ops,
@@ -99,6 +130,8 @@ def measure(groups=GROUPS) -> list[dict]:
 
 def _volume_cases(case, ris, fov, dev) -> None:
     """Rows 1, 1b and 2 of the kernel table."""
+    import inspect
+
     import torch
 
     from lidar_transfer_tpu_torch.config import HDL64
@@ -118,10 +151,17 @@ def _volume_cases(case, ris, fov, dev) -> None:
         tag = "x".join(map(str, dims))
         table = precompute_geometry_cuda(spec, HDL64.fov_up, HDL64.fov_down,
                                          HDL64.H, device=dev)
-        if big:
-            case(f"geometry table {tag}", lambda: precompute_geometry_cuda(
-                spec, HDL64.fov_up, HDL64.fov_down, HDL64.H, device=dev),
-                bounds.geometry(dims), 10, 3)
+        # the table's modes; a tree from before the fast mode has one
+        modes = ({"fast": {}, "exact": {"exact": True}}
+                 if "exact" in inspect.signature(
+                     precompute_geometry_cuda).parameters
+                 else {"exact": {}})
+        for mode, kw in modes.items():
+            case(f"geometry table {tag} {mode}",
+                 lambda: precompute_geometry_cuda(
+                     spec, HDL64.fov_up, HDL64.fov_down, HDL64.H,
+                     device=dev, **kw),
+                 bounds.geometry(dims), 10, 3)
         for compact in (False, True):
             if dims == SMALL_DIMS and not compact:
                 continue
@@ -186,14 +226,16 @@ def _small_cases(case, scan, dev) -> None:
     from lidar_transfer_tpu_torch.probes import bounds
 
     rng = np.random.default_rng(0)
-    m, C = 131072, 260
-    pred = rng.choice([0, 10, 40, 48, 50, 70, 252], m).astype(np.int32)
-    tgt = np.where(rng.random(m) < 0.8, pred,
-                   rng.integers(0, C, m)).astype(np.int32)
-    pred_t, tgt_t = (torch.from_numpy(a).to(dev) for a in (pred, tgt))
-    case(f"confusion N={m} C={C}",
-         lambda: TF.confusion_matrix(pred_t, tgt_t, C),
-         bounds.confusion(m, C), 200, 50)
+    for C, ids in ((260, [0, 10, 40, 48, 50, 70, 252]),
+                   (20, [0, 1, 2, 3, 5, 7, 11])):
+        for m in (131072, 1 << 20):
+            for labels in ("skewed", "uniform"):
+                pred_t, tgt_t = (
+                    torch.from_numpy(a).to(dev) for a in confusion_labels(
+                        rng, m, C, labels == "skewed", ids))
+                case(f"confusion N={m} C={C} {labels}",
+                     lambda: TF.confusion_matrix(pred_t, tgt_t, C),
+                     bounds.confusion(m, C), 200, 50)
 
     pts, _, _, valid = scan
     npix = HDL64.H * HDL64.W
@@ -241,6 +283,8 @@ def main(argv=None) -> int:
     ap.add_argument("groups", nargs="*", metavar="GROUP",
                     help=f"the groups of cases to run, of {', '.join(GROUPS)}"
                          " (default: all)")
+    ap.add_argument("--only", default="", metavar="TEXT",
+                    help="run only the cases whose name contains TEXT")
     ap.add_argument("--out", help="write every row as JSON here")
     args = ap.parse_args(argv)
     if set(args.groups) - set(GROUPS):
@@ -249,7 +293,9 @@ def main(argv=None) -> int:
         print("the cases run on a CUDA device; none is available",
               file=sys.stderr)
         return 1
-    rows = measure(tuple(args.groups) or GROUPS)
+    rows = measure(tuple(args.groups) or GROUPS, args.only)
+    if not rows:
+        ap.error(f"no case of these groups contains {args.only!r}")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)

@@ -107,20 +107,22 @@ def _gbs(nbytes, ms):
 def run_write(iters: int = 50, dims=DIMS, tag: str = ""):
     """probe_pallas_write's rows at ``dims``, each beside the plain fill of
     the same tensors. Prints one line a row; -> the rows as dicts."""
-    from lidar_transfer_tpu_torch.probes.timing import cuda_ms
+    from lidar_transfer_tpu_torch.probes.timing import cuda_ms, device_ms
 
     dev = torch.device("cuda")
     X, Y, Z = dims
     rows = []
 
-    def row(name, ms, plain_ms, nbytes, err=None):
+    def row(name, ms, plain_ms, nbytes, err=None, d_ms=None):
         rows.append(dict(probe="write", row=name, ms=ms, plain_ms=plain_ms,
-                         gb_s=_gbs(nbytes, ms), max_abs_err=err))
+                         device_ms=d_ms, gb_s=_gbs(nbytes, ms),
+                         max_abs_err=err))
         plain = ("" if plain_ms is None else
                  f", PyTorch fill {plain_ms:7.4f} ms "
                  f"({_gbs(nbytes, plain_ms):7.1f} GB/s)")
+        on_dev = "" if d_ms is None else f", device {d_ms:7.4f} ms"
         print(f"write {name:28s}: {ms:7.4f} ms ({rows[-1]['gb_s']:7.1f} "
-              f"GB/s){plain} {tag}", flush=True)
+              f"GB/s){on_dev}{plain} {tag}", flush=True)
 
     for dt, n in ((torch.bfloat16, 1), (torch.bfloat16, 3),
                   (torch.float32, 1)):
@@ -129,21 +131,26 @@ def run_write(iters: int = 50, dims=DIMS, tag: str = ""):
                               for i in range(n)], iters)
         row(f"PyTorch full {str(dt)[6:]} x{n}", ms, None, nbytes)
 
-    def kernel_row(name, dts, **block):
+    def kernel_row(name, dts, on_device=False, **block):
+        """``on_device`` adds the row's device time (a profiler trace)."""
         outs = [torch.empty(dims, dtype=dt, device=dev) for dt in dts]
         nbytes = sum(o.numel() * o.element_size() for o in outs)
         ms = cuda_ms(lambda: probe_write(outs, **block), iters)
+        d_ms = (device_ms(lambda: probe_write(outs, **block), 3)[0]
+                if on_device else None)
         ref = [torch.empty_like(o) for o in outs]
         p_ms = cuda_ms(lambda: write_plain(ref), iters)
         err = max(float((a.float() - b.float()).abs().max())
                   for a, b in zip(outs, ref))
         if err:
             raise AssertionError(f"write {name}: kernel != plain fill")
-        row(name, ms, p_ms, nbytes, err)
+        row(name, ms, p_ms, nbytes, err, d_ms)
 
+    # the device time of one row of each of the script's two probes
     for bx, by in ((1, 1024), (2, 1024), (4, 1024), (8, 1024), (8, 512),
                    (16, 256), (1, 512), (4, 512)):
-        kernel_row(f"BX{bx} BY{by} bf16 x1", [torch.bfloat16], BX=bx, BY=by)
+        kernel_row(f"BX{bx} BY{by} bf16 x1", [torch.bfloat16],
+                   on_device=(bx, by) == (8, 1024), BX=bx, BY=by)
     for dt in (torch.float32, torch.int32, torch.int8):
         kernel_row(f"BX4 BY1024 {str(dt)[6:]} x1", [dt], BX=4, BY=1024)
     for bx in (4, 2):
@@ -152,7 +159,8 @@ def run_write(iters: int = 50, dims=DIMS, tag: str = ""):
     print("write arbitrary semantics: no CUDA meaning (CTAs run in no "
           "order and carry nothing between them)", flush=True)
     for br in (1024, 4096, 8192):
-        kernel_row(f"2D rows BR{br} bf16 x1", [torch.bfloat16], BR=br)
+        kernel_row(f"2D rows BR{br} bf16 x1", [torch.bfloat16],
+                   on_device=br == 8192, BR=br)
     return rows
 
 

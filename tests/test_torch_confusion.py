@@ -17,6 +17,7 @@ from lidar_transfer_tpu.metrics import ioueval as JI
 from lidar_transfer_tpu_torch.metrics import compare as TC
 from lidar_transfer_tpu_torch.metrics import confusion as TF
 from lidar_transfer_tpu_torch.metrics import ioueval as TI
+from lidar_transfer_tpu_torch.probes.cases import confusion_labels
 
 C = 260
 
@@ -102,3 +103,47 @@ def test_compare_scans_matches():
         np.testing.assert_allclose(getattr(t, f).numpy(),
                                    np.asarray(getattr(j, f)), rtol=1e-6,
                                    atol=1e-6, err_msg=f)
+
+
+def _labels(seed, n, n_classes, skewed):
+    """The card's check's labels: skewed (7 ids, 80 % on the diagonal, some
+    out of range) or uniform ids."""
+    return confusion_labels(np.random.default_rng(seed), n, n_classes,
+                            skewed, stray=True)
+
+
+@pytest.mark.parametrize("skewed", [True, False])
+@pytest.mark.parametrize("n", [1, 2049, 131072])
+@pytest.mark.parametrize("n_classes", [260, 20, 1, 37])
+def test_confusion_sizes_match_pallas_and_onehot(n_classes, n, skewed):
+    """The sizes the card's kernel is checked at (a matrix a block counts
+    whole, C <= 64; one whose diagonal it counts; one sample; a compare
+    image's 131,072), through confusion_matrix on CPU tensors: equal to
+    confusion_pallas(interpret=True) and confusion_onehot, exactly."""
+    pred, tgt = _labels(7, n, n_classes, skewed)
+    out = TF.confusion_matrix(torch.from_numpy(pred), torch.from_numpy(tgt),
+                              n_classes).numpy()
+    assert out.shape == (n_classes, n_classes) and out.dtype == np.int32
+    jp, jt = jnp.asarray(pred), jnp.asarray(tgt)
+    np.testing.assert_array_equal(
+        out, np.asarray(JF.confusion_pallas(jp, jt, n_classes,
+                                            interpret=True)))
+    np.testing.assert_array_equal(
+        out, np.asarray(JF.confusion_onehot(jp, jt, n_classes)))
+    ok = (pred >= 0) & (pred < n_classes) & (tgt >= 0) & (tgt < n_classes)
+    assert out.sum() == ok.sum()
+
+
+@pytest.mark.parametrize("n_classes", [260, 20])
+def test_confusion_empty_and_large(n_classes):
+    """No sample gives zeros; 2^20 samples (the large N the card's kernel
+    is timed at) equal the JAX scatter version."""
+    none = torch.zeros(0, dtype=torch.int32)
+    out = TF.confusion_matrix(none, none, n_classes)
+    assert out.shape == (n_classes, n_classes) and int(out.sum()) == 0
+    pred, tgt = _labels(8, 1 << 20, n_classes, True)
+    np.testing.assert_array_equal(
+        TF.confusion_matrix(torch.from_numpy(pred), torch.from_numpy(tgt),
+                            n_classes).numpy(),
+        np.asarray(JF.confusion_scatter(jnp.asarray(pred), jnp.asarray(tgt),
+                                        n_classes)))

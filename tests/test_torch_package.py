@@ -107,6 +107,21 @@ def test_cpu_calls_launch_no_kernel(small_spec):
         "probe_ablate": 0, "probe_write": 0}
 
 
+def test_extra_nvcc_flags_name_another_library(monkeypatch):
+    """LT_NVCC_EXTRA adds flags to every nvcc command (a -D that selects a
+    measurement variant of a kernel) and so to the library's hash: a
+    variant never loads in place of the kernels the port ships."""
+    monkeypatch.delenv("LT_NVCC_EXTRA", raising=False)
+    plain = _build.library_path()
+    assert _build.nvcc_flags() == _build.NVCC_FLAGS
+    monkeypatch.setenv("LT_NVCC_EXTRA", "-DLT_CONFUSION_CLUSTER=16 -lineinfo")
+    assert _build.nvcc_flags() == _build.NVCC_FLAGS + (
+        "-DLT_CONFUSION_CLUSTER=16", "-lineinfo")
+    assert _build.library_path() != plain
+    assert "#ifdef LT_CONFUSION_CLUSTER" in (
+        _build.CSRC / "confusion.cu").read_text()
+
+
 @pytest.mark.parametrize("case", ["raymarch", "catmesh_oracle"])
 def test_engine_refuses_unported(case):
     """Raymarch synthesis and catmesh's oracle engine raise
