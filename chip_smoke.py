@@ -24,9 +24,11 @@
    plain rows on >= 1 - 1e-6 of voxels; the confusion counts exact in 60
    more cases (C = 260, 20, 1, 37, 1500; N = 0, 1, 131072, 2^20; skewed and
    uniform labels; inputs off their alignment); the three
-   probe kernels at 64x256x256 in every variant, int16 labels exact and
-   bf16 outputs within one bf16 ulp, the writes exact
-   (``kernel_checks``).
+   probe kernels at 64x256x256 in every variant (the parts probe's int16
+   labels exact and bf16 outputs within one bf16 ulp; the ablate probe bit
+   for bit, also at Z = 206, at an X*Y no warp's column count divides and
+   with a misaligned table; the writes byte for byte in every block,
+   dtype, row, read-first and alias case) (``kernel_checks``).
 2. Drives each path at the reference operating point (HDL64 64x2048
    source, voxel 0.05 m, bounds +-50/+-50/+-5 m, fixed bounds), with the
    launch counts set to 0 just before it and read just after:
@@ -288,8 +290,11 @@ def _check_fusion_kernels(torch, rng, kernels) -> None:
 
 def _check_probe_kernels(torch, rng, kernels) -> None:
     """Phase 1 for the three probe kernels at 64x256x256, every variant
-    against its plain version: int16 labels exact, bf16 outputs within one
-    bf16 ulp, the writes exact."""
+    against its plain version: the parts probe's int16 labels exact and
+    bf16 outputs within one bf16 ulp; the ablate probe bit for bit, also at
+    Z = 206, at an X*Y that a warp's 8 columns do not divide and with a
+    misaligned table; the writes byte for byte in every block, dtype,
+    output count, flat-row, read-first and alias case, odd sizes too."""
     from lidar_transfer_tpu_torch.ops import tsdf as TS
     from lidar_transfer_tpu_torch.ops.tsdf_cuda import \
         precompute_geometry_cuda
@@ -327,67 +332,123 @@ def _check_probe_kernels(torch, rng, kernels) -> None:
         replaces="scripts/probe_kernel_parts.py:94", max_abs_err=worst)
 
     # ablate: depths 13-19 m around a volume 14 m out, labels 0..19 (0
-    # takes the same-class branch), a crop short of the dims
+    # takes the same-class branch), a crop short of the dims; bit for bit
+    # equal to the plain version at the dims above (BX 1, 2, 4), at Z = 206
+    # (8-voxel vectors: the runs hold 8 columns), at an X*Y that 8 does not
+    # divide (Z = 256: a short last run of whole vectors; Z = 204: 4 voxels
+    # a lane; Z = 206: one) and with the table 4 and 1 bytes off its
+    # alignment (4 voxels a lane, one)
     origin = (14.0, -6.4, -6.4)
-    spec = TS.VolumeSpec(origin, 0.05, dims)
     imgs = [torch.from_numpy(a).to(dev) for a in (
         (rng.random((64, 2048)) * 6 + 13).astype(np.float32),
         rng.integers(0, 20, (64, 2048)).astype(np.int32),
         rng.random((64, 2048)).astype(np.float32))]
-    table = precompute_geometry_cuda(spec, 3.0, -25.0, 64, device=dev)
-    dcol, lrcol = ablate.build_cols(*imgs, dims, origin)
-    args = (ablate.ablate_params(origin, (60, 250, 200), dev), dcol, lrcol,
-            table)
-    worst = 0.0
-    for div in (True, False):
-        ref = ablate.ablate_plain(div, *args)
-        for bx in (1, 2, 4):
-            worst = max(worst, max_diff(
-                ablate.probe_ablate(div, *args, BX=bx), ref,
-                f"probe_ablate div={div} BX{bx}"))
-    upd = ref[0] < 1
-    print(f"probe_ablate {dims}: precols and nodiv x BX 1/2/4 equal to "
-          f"plain, max |diff| {worst:g}; updates "
-          f"{float(upd.float().mean()):.4f} of voxels, same-class "
-          f"{float((upd & (ref[1] == 0)).float().mean()):.4f}")
-    check(0.001 < float(upd.float().mean()) < 0.9, "probe_ablate updates "
-          "no share of the voxels")
+    n_cases, share = 0, None
+    vecs = set()
+    for adims, bxs, off in ((dims, (1, 2, 4), 0),
+                            ((64, 256, 206), (2, 3), 0),
+                            ((63, 255, 256), (2,), 0),
+                            ((63, 255, 204), (1, 2), 0),
+                            ((63, 255, 206), (1, 2), 0),
+                            (dims, (2,), 4),
+                            (dims, (2,), 1)):
+        spec = TS.VolumeSpec(origin, 0.05, adims)
+        table = precompute_geometry_cuda(spec, 3.0, -25.0, 64, device=dev)
+        if off:
+            buf = torch.empty(table.numel() + off, dtype=torch.int8,
+                              device=dev)
+            table = buf[off:].view(adims).copy_(table)
+        dcol, lrcol = ablate.build_cols(*imgs, adims, origin)
+        args = (ablate.ablate_params(origin, (adims[0] - 4, adims[1] - 6,
+                                              adims[2] - 56), dev),
+                dcol, lrcol, table)
+        plan = ablate.ablate_plan(
+            *adims, table_align=ablate.align_of(table.data_ptr()))
+        vecs.add(plan.vec)
+        for div in (True, False):
+            ref = ablate.ablate_plain(div, *args)
+            for bx in bxs:
+                got = ablate.probe_ablate(div, *args, BX=bx)
+                what = (f"probe_ablate div={div} {adims} BX{bx} vec "
+                        f"{plan.vec} table offset {off}")
+                check(all(torch.equal(g, r) for g, r in zip(got, ref)),
+                      f"{what}: != plain (bit for bit)")
+                n_cases += 1
+            if share is None:
+                upd = ref[0] < 1
+                share = (float(upd.float().mean()),
+                         float((upd & (ref[1] == 0)).float().mean()))
+        del table, dcol, lrcol, args, ref, got
+    print(f"probe_ablate: {n_cases} cases (precols and nodiv; {dims} at BX "
+          f"1/2/4, Z = 206 and 204, X*Y = 16065, the table 4 and 1 bytes off "
+          f"its alignment; {sorted(vecs)} voxels a lane) equal to plain bit "
+          f"for bit; updates {share[0]:.4f} of voxels, same-class "
+          f"{share[1]:.4f}")
+    check(vecs == {1, 4, 8}, "probe_ablate: a vector width untested")
+    check(0.001 < share[0] < 0.9, "probe_ablate updates no share of the "
+          "voxels")
     kernels["probe_ablate"] = dict(
         route="cuda", source="lidar_transfer_tpu_torch/csrc/probe_ablate.cu",
-        replaces="scripts/probe_integrate_ablate.py:53", max_abs_err=worst)
+        replaces="scripts/probe_integrate_ablate.py:53", max_abs_err=0.0)
 
-    # write: blocks, dtypes, three outputs, flat rows, reading first, and
-    # probe_alias's modes, over old contents of 7
+    # write: blocks, dtypes, three outputs, flat rows, reading first, odd
+    # sizes whose runs end inside a tile, each output between guards of 16
+    # elements of 7 that must stay 7; byte for byte equal to the plain fill
+    def guarded(shape, dt):
+        n = shape[0] * shape[1] * shape[2]
+        buf = torch.full((n + 32,), 7, dtype=dt, device=dev)
+        return buf, buf[16:16 + n].view(shape)
+
+    all_dts = list(write.CODES)
     n = 0
-    for dts, block in (
-            ([torch.bfloat16], dict(BX=1, BY=256)),
-            ([torch.bfloat16], dict(BX=2, BY=128)),
-            ([torch.float32], dict(BX=4, BY=256)),
-            ([torch.int32], dict(BX=4, BY=256)),
-            ([torch.int8], dict(BX=4, BY=256)),
-            ([torch.int16], dict(BX=8, BY=64)),
-            ([torch.bfloat16] * 3, dict(BX=2, BY=256)),
-            (write.ALIAS_DTYPES, dict(BX=2, BY=256, read_first=True)),
-            ([torch.bfloat16], dict(BR=256)),
-            ([torch.bfloat16], dict(BR=1024))):
-        got = write.probe_write([torch.full(dims, 7, dtype=dt, device=dev)
-                                 for dt in dts], **block)
-        ref = write.write_plain([torch.empty(dims, dtype=dt, device=dev)
+    for wdims, dts, block in (
+            [(dims, [torch.bfloat16], dict(BX=1, BY=256)),
+             (dims, [torch.bfloat16], dict(BX=2, BY=128)),
+             (dims, [torch.float32], dict(BX=4, BY=256)),
+             (dims, [torch.int32], dict(BX=4, BY=256)),
+             (dims, [torch.int8], dict(BX=4, BY=256)),
+             (dims, [torch.int16], dict(BX=8, BY=64)),
+             (dims, [torch.bfloat16] * 3, dict(BX=2, BY=256)),
+             (dims, [torch.bfloat16], dict(BX=8, BY=256)),
+             (dims, [torch.bfloat16], dict(BR=256)),
+             (dims, [torch.bfloat16], dict(BR=1024)),
+             ((63, 250, 208), [torch.bfloat16, torch.float32, torch.int8],
+              dict(BX=7, BY=5)),
+             ((63, 250, 208), [torch.int8, torch.int16, torch.int32],
+              dict(BR=126))]
+            + [(dims, [dt], dict(BX=4, BY=256, read_first=True))
+               for dt in all_dts]
+            + [((63, 250, 208), [torch.bfloat16, torch.float32, torch.int8],
+                dict(BX=9, BY=25, read_first=True))]):
+        bufs = [guarded(wdims, dt) for dt in dts]
+        write.probe_write([o for _, o in bufs], **block)
+        ref = write.write_plain([torch.empty(wdims, dtype=dt, device=dev)
                                  for dt in dts])
-        max_diff(got, ref, f"probe_write {dts} {block}")
+        for i, ((buf, o), r) in enumerate(zip(bufs, ref)):
+            check(torch.equal(o, r), f"probe_write {wdims} {dts} {block}: "
+                  f"output {i} != plain fill (byte for byte)")
+            check(bool((buf[:16] == 7).all() and (buf[-16:] == 7).all()),
+                  f"probe_write {wdims} {dts} {block}: wrote past output "
+                  f"{i}")
         n += 1
+    # probe_alias's modes, in each dtype, over old contents of 7
     for mode in write.ALIAS_MODES:
-        state = [torch.full(dims, 7, dtype=dt, device=dev)
-                 for dt in write.ALIAS_DTYPES + (torch.bfloat16,)]
-        out = write.alias_call(mode, state, BX=2, BY=256)
-        max_diff(out[:3], write.write_plain(
-            [torch.empty_like(t) for t in state[:3]]), f"alias {mode}")
-        check(len(out) == (4 if mode == "alias_any4" else 3)
-              and (mode == "noalias") != (out[0] is state[0]),
-              f"alias {mode}: outputs not arranged as the mode says")
-        n += 1
-    print(f"probe_write {dims}: {n} block, dtype, row and alias cases "
-          "equal to the plain fill")
+        for dt in all_dts:
+            state = [torch.full(dims, 7, dtype=dt, device=dev)
+                     for _ in range(4)]
+            out = write.alias_call(mode, state, BX=2, BY=256)
+            ref = write.write_plain([torch.empty_like(t)
+                                     for t in state[:3]])
+            check(all(torch.equal(o, r) for o, r in zip(out[:3], ref)),
+                  f"alias {mode} {dt}: != plain fill (byte for byte)")
+            check(len(out) == (4 if mode == "alias_any4" else 3)
+                  and (mode == "noalias") != (out[0] is state[0])
+                  and (mode != "alias_any4" or out[3] is state[3]),
+                  f"alias {mode}: outputs not arranged as the mode says")
+            n += 1
+    print(f"probe_write: {n} block, dtype, row, read-first, odd-size and "
+          "alias cases (every mode in every dtype) equal to the plain fill "
+          "byte for byte, nothing written past an output")
     kernels["probe_write"] = dict(
         route="cuda", source="lidar_transfer_tpu_torch/csrc/probe_write.cu",
         replaces="scripts/probe_pallas_write.py:40", max_abs_err=0.0)
@@ -1488,6 +1549,18 @@ def _probe_path(torch, kernels, tag):
     # the one PyTorch call that writes the alias probe's three outputs
     kernels["probe_write"]["library_ms"] = next(
         r["ms"] for r in rows if r["row"] == "PyTorch full bfloat16 x3")
+    # rows 6 and 7 on the device beside PyTorch's fill of the same tensors
+    for probe, row, fill in (("write", "BX8 BY1024 bf16 x1", "fill_"),
+                             ("write", "2D rows BR8192 bf16 x1", "fill_"),
+                             ("alias", "alias_any", "three fill_")):
+        r = next(r for r in rows if (r["probe"], r["row"]) == (probe, row))
+        d, p = r["device_ms"], r["plain_device_ms"]
+        print(f"probe_write {row}: device "
+              + ("not measured" if d is None else f"{d:.4f} ms")
+              + f", {fill} of the same tensors "
+              + ("not measured" if p is None else f"{p:.4f} ms")
+              + ("" if d is None or p is None else f" ({d / p:.3f} x)")
+              + f" {tag}")
     return counts
 
 

@@ -55,9 +55,9 @@ SIGNATURES = {
     "lt_probe_parts": (_P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P),
     "lt_probe_ablate": (_P, _P, _P, _P, _P, _P, _P,
-                        _I, _I, _I, _I, _I, _I, _F, _F, _F, _P),
+                        _I, _I, _I, _I, _I, _I, _L, _I, _F, _F, _F, _P),
     "lt_probe_write": (_P, _P, _P, _I, _I, _I, _I,
-                       _L, _L, _L, _L, _L, _I, _P),
+                       _L, _L, _L, _L, _L, _I, _I, _I, _L, _I, _P),
     "lt_empty_launch": (_P,),
 }
 

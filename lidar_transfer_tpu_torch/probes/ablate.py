@@ -17,6 +17,8 @@ is the same function in PyTorch, which a CPU tensor takes.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -32,6 +34,86 @@ ORIGIN = (-25.6, -25.6, -6.4)
 VOXEL, TRUNC = 0.05, 0.25
 FOV_UP, FOV_DOWN = 3.0, -25.0
 OUT_DTYPES = (torch.bfloat16, torch.int16, torch.bfloat16)
+#: the kernel's partition (``csrc/probe_ablate.cu``): columns of a run,
+#: warps of a block, the voxels a lane may move per access (widest first)
+COLS, WARPS, VECS = 8, 8, (8, 4, 1)
+
+
+class AblatePlan(NamedTuple):
+    """How kernel ``probe_ablate`` splits an (X, Y, Z) volume: ``runs`` of
+    COLS consecutive (x, y) columns (the last may be short), ``bx`` of them
+    walked in turn by each warp (warp w of the grid's G takes runs w,
+    w + G, ...), ``grid`` blocks of WARPS warps, ``vec`` voxels a lane
+    moves per access: 8, or 4 or 1 where a last run ends inside a wider
+    vector or a pointer is off its alignment."""
+
+    runs: int
+    bx: int
+    grid: int
+    vec: int
+
+
+def ablate_plan(X: int, Y: int, Z: int, BX: int = 2, table_align: int = 16,
+                out_align: int = 16) -> AblatePlan:
+    """The partition the wrapper launches; ``table_align`` and
+    ``out_align``: the bytes the table's and the outputs' pointers are
+    aligned to (a lane's vec table bytes and 2 * vec output bytes move as
+    one access)."""
+    if BX < 1:
+        raise ValueError(f"probe_ablate: BX={BX} must be >= 1")
+    cols = X * Y
+    runs = -(-cols // COLS)
+    grid = -(-runs // (WARPS * BX))
+    vec = next(v for v in VECS if v == 1 or (
+        (Z % v == 0 or cols % COLS == 0) and table_align % v == 0
+        and out_align % (2 * v) == 0))
+    return AblatePlan(runs, BX, grid, vec)
+
+
+def align_of(ptr: int) -> int:
+    """The largest power of two up to 16 that divides ``ptr``."""
+    return min(16, ptr & -ptr) if ptr else 16
+
+
+def ablate_walk(plan: AblatePlan, X: int, Y: int, Z: int):
+    """What each warp of ``plan`` does, run by run, as the kernel walks:
+    yields (run, folded, stored, rows), arrays of the voxel indices
+    (into the flat (X, Y, Z) volume) the lanes fold, store and whose table
+    rows they load, in the kernel's order of chunks and steps. The fold's
+    index comes from the kernel's carry walk of (column, z)."""
+    cols = X * Y
+    lanes = np.arange(32)
+    warps = plan.grid * WARPS
+    for warp in range(warps):
+        for k in range(plan.bx):
+            run = warp + k * warps
+            col0 = run * COLS
+            if col0 >= cols:
+                break
+            n = min(COLS, cols - col0) * Z
+            base = col0 * Z
+            c, z = lanes // Z, lanes % Z
+            folded, stored, rows = [], [], []
+            chunk = 32 * plan.vec
+            for i0 in range(0, n, chunk):
+                starts = i0 + lanes * plan.vec
+                have = starts < n
+                rows.append(base + (starts[have, None]
+                                    + np.arange(plan.vec)).ravel())
+                for j in range(plan.vec):
+                    i = i0 + j * 32 + lanes
+                    live = i < n
+                    folded.append(base + c[live] * Z + z[live])
+                    if plan.vec == 1:
+                        stored.append(base + i[live])
+                    z = z + 32
+                    while (z >= Z).any():
+                        c = np.where(z >= Z, c + 1, c)
+                        z = np.where(z >= Z, z - Z, z)
+                if plan.vec > 1:
+                    stored.append(rows[-1])
+            yield (run, np.concatenate(folded), np.concatenate(stored),
+                   np.concatenate(rows))
 
 
 def make_images(device="cpu", seed: int = 0, H: int = H, W: int = W):
@@ -140,13 +222,14 @@ def ablate_plain(div: bool, params, dcol, lrcol, v_tab, *,
 
 def probe_ablate(div: bool, params, dcol, lrcol, v_tab, *, BX: int = 2,
                  voxel_size: float = VOXEL, trunc: float = TRUNC):
-    """The compact reset state: kernel ``probe_ablate`` on the card, the
-    plain version for CPU tensors."""
+    """The compact reset state: kernel ``probe_ablate`` on the card (each
+    warp walking ``BX`` runs of COLS columns; the outputs do not depend on
+    it), the plain version for CPU tensors."""
     if dcol.device.type == "cpu":
         return ablate_plain(div, params, dcol, lrcol, v_tab,
                             voxel_size=voxel_size, trunc=trunc)
     X, cw, Y = dcol.shape
-    _check_inputs("probe_ablate", params, (dcol, lrcol), X, BX)
+    _check_inputs("probe_ablate", params, (dcol, lrcol), X, 1)
     if (v_tab.device != dcol.device or v_tab.dtype != torch.int8
             or not v_tab.is_contiguous() or v_tab.dim() != 3
             or tuple(v_tab.shape[:2]) != (X, Y)):
@@ -155,12 +238,15 @@ def probe_ablate(div: bool, params, dcol, lrcol, v_tab, *, BX: int = 2,
     Z = v_tab.shape[2]
     dev = dcol.device
     outs = [torch.empty((X, Y, Z), dtype=dt, device=dev) for dt in OUT_DTYPES]
+    plan = ablate_plan(X, Y, Z, BX, align_of(v_tab.data_ptr()),
+                       min(align_of(o.data_ptr()) for o in outs))
     f32 = lambda v: float(np.float32(v))  # noqa: E731
     _build.launch("probe_ablate", "lt_probe_ablate",
                   *(o.data_ptr() for o in outs), params.data_ptr(),
                   dcol.data_ptr(), lrcol.data_ptr(), v_tab.data_ptr(),
-                  int(div), X, Y, Z, cw, BX, f32(voxel_size), f32(trunc),
-                  f32(1.0 / trunc), _build.stream_handle(dev))
+                  int(div), X, Y, Z, cw, BX, plan.grid, plan.vec,
+                  f32(voxel_size), f32(trunc), f32(1.0 / trunc),
+                  _build.stream_handle(dev))
     return tuple(outs)
 
 

@@ -26,7 +26,16 @@ padded points):
           environment the confusion cases time the kernel's one-cluster
           variant, ``csrc/confusion.cu``, which was measured and not kept);
   frame   three mergemesh frames (HDL64 to HDL32, ``transfer_fast``): the
-          device operations they issue.
+          device operations they issue;
+  probes  rows 4, 6 and 7 at the probe scripts' 1024x1024x256: the ablate
+          kernel, precols and nodiv at BX 1, 2 and 4, beside the real
+          compact integrate with the table on the same images and table;
+          the write kernel, bf16 x1 at BX8 BY1024 and in flat rows of
+          BR8192, the three alias outputs in place (alias_any) and read
+          first (alias_vmem), three bf16 outputs, float32 and int8, each
+          beside ``Tensor.fill_`` of the same tensors (three fills for three
+          outputs) and ``torch.full``, alias_vmem also beside an in-place
+          ``Tensor.add_`` of each output (the same bytes read and written).
 
 Each case gives the wrapper's time (CUDA events around back-to-back calls),
 the device time (the summed durations of the device operations of a call,
@@ -44,7 +53,7 @@ import json
 import os
 import sys
 
-GROUPS = ("volume", "small", "frame")
+GROUPS = ("volume", "small", "frame", "probes")
 DIMS = (2048, 2048, 208)
 ODD_DIMS = (2048, 2048, 206)
 SCALAR_DIMS = (2047, 2047, 206)
@@ -125,6 +134,8 @@ def measure(groups=GROUPS, only: str = "") -> list[dict]:
         _small_cases(case, scans[0], dev)
     if "frame" in groups:
         _frame_case(case, scans, dev)
+    if "probes" in groups:
+        _probe_cases(case, dev)
     return rows
 
 
@@ -274,6 +285,70 @@ def _frame_case(case, scans, dev) -> None:
     case("mergemesh frame HDL64->HDL32 (transfer_fast, 3 frames a call)",
          lambda: [eng.transfer_fast(w) for w in wins], bounds.bound(0), 20,
          3)
+
+
+def _probe_cases(case, dev) -> None:
+    """Rows 4, 6 and 7 of the kernel table, each beside what it is held
+    to: the real integrate (row 4) and PyTorch's fill (rows 6 and 7)."""
+    import torch
+
+    from lidar_transfer_tpu_torch.ops import tsdf as TS
+    from lidar_transfer_tpu_torch.ops.tsdf_cuda import (
+        integrate_cuda, precompute_geometry_cuda)
+    from lidar_transfer_tpu_torch.probes import ablate, bounds, write
+
+    dims = ablate.DIMS
+    tag = "x".join(map(str, dims))
+    spec = TS.VolumeSpec(ablate.ORIGIN, ablate.VOXEL, dims)
+    imgs = ablate.make_images(dev)
+    fov = dict(fov_up_deg=ablate.FOV_UP, fov_down_deg=ablate.FOV_DOWN)
+    table = precompute_geometry_cuda(spec, ablate.FOV_UP, ablate.FOV_DOWN,
+                                     ablate.H, device=dev)
+    state = spec.init_state(dev, compact=True)
+    case(f"ablate real {tag} (integrate compact reset no weight, table)",
+         lambda: integrate_cuda(state, spec, *imgs, reset=True,
+                                write_weight=False, v_tab=table, **fov),
+         bounds.integrate(dims, compact=True, write_weight=False, table=True,
+                          image_hw=(ablate.H, ablate.W)), 20, 3)
+    del state
+    args = (ablate.ablate_params(ablate.ORIGIN, dims, dev),
+            *ablate.build_cols(*imgs, dims, ablate.ORIGIN), table)
+    for div, name in ((True, "precols"), (False, "nodiv")):
+        for bx in (2, 1, 4):
+            case(f"ablate {name} {tag} BX{bx}",
+                 lambda: ablate.probe_ablate(div, *args, BX=bx),
+                 bounds.probe_ablate(dims, ablate.CW), 20, 3)
+    del args, table
+    torch.cuda.empty_cache()
+
+    dims = write.DIMS
+    alias = dict(zip(("BX", "BY"), write.ALIAS_BLOCK))
+    for name, dts, block in (
+            ("bf16 x1 BX8 BY1024", [torch.bfloat16], dict(BX=8, BY=1024)),
+            ("bf16 x1 BR8192", [torch.bfloat16], dict(BR=8192)),
+            ("alias_any", write.ALIAS_DTYPES, alias),
+            ("alias_vmem", write.ALIAS_DTYPES, dict(alias, read_first=True)),
+            ("bf16 x3 BX4 BY1024", [torch.bfloat16] * 3,
+             dict(BX=4, BY=1024)),
+            ("float32 x1 BX4 BY1024", [torch.float32], dict(BX=4, BY=1024)),
+            ("int8 x1 BX4 BY1024", [torch.int8], dict(BX=4, BY=1024))):
+        outs = [torch.zeros(dims, dtype=dt, device=dev) for dt in dts]
+        # read first: each output's bytes read and written
+        b = bounds.probe_write(dims, [dt.itemsize * (
+            2 if block.get("read_first") else 1) for dt in dts])
+        case(f"write {name} {tag}",
+             lambda: write.probe_write(outs, **block), b, 20, 3)
+        case(f"write {name} {tag}: Tensor.fill_ x{len(outs)}",
+             lambda: write.write_plain(outs), b, 20, 3)
+        case(f"write {name} {tag}: torch.full x{len(outs)}",
+             lambda: [torch.full(dims, i + 1, dtype=dt, device=dev)
+                      for i, dt in enumerate(dts)], b, 20, 3)
+        if block.get("read_first"):
+            # PyTorch's read and write of the same bytes, one call an output
+            case(f"write {name} {tag}: Tensor.add_ x{len(outs)}",
+                 lambda: [o.add_(1) for o in outs], b, 20, 3)
+        del outs
+        torch.cuda.empty_cache()
 
 
 def main(argv=None) -> int:

@@ -1,4 +1,4 @@
-"""Runtime utilities: stage timing.
+"""Runtime utilities: stage timing, and the CPU warm-up of the port.
 
 The port's own copy of ``StageTimer`` from
 ``lidar_transfer_tpu/utils/runtime.py``.
@@ -49,3 +49,18 @@ class StageTimer:
             return
         for name, dt in self.spans.items():
             print(f"[{name}] {dt:.2f}s ({self.rate(name):.2f}/s)")
+
+
+def cpu_warmup() -> None:
+    """Take PyTorch's first large threaded float32 ``asin`` and ``sqrt``
+    of the process on the CPU. The first such call of a process is at
+    times off by up to 3e-4 relative in one thread's share of the elements
+    (torch 2.13.0+cpu, 8 threads: 4 of 60 fresh processes); no later call
+    is, and after this no first one was (``python -m
+    lidar_transfer_tpu_torch.probes.first_sqrt``). Port only: the JAX
+    package's runtime has no counterpart."""
+    import torch
+
+    x = torch.zeros(1 << 21)
+    torch.asin(x)
+    torch.sqrt(x)

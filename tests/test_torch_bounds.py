@@ -6,6 +6,16 @@ figures are stated in."""
 import pytest
 
 from lidar_transfer_tpu_torch.probes import bounds
+from lidar_transfer_tpu_torch.utils.runtime import cpu_warmup
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _cpu_warmup():
+    """PyTorch's first threaded asin and sqrt of a process on the CPU are
+    at times off in one thread's share: taken here, before this module's
+    tensor work (``utils/runtime.cpu_warmup``)."""
+    cpu_warmup()
+
 
 BIG = (2048, 2048, 208)            # 872,415,232 voxels
 SMALL = (1024, 1024, 256)

@@ -18,6 +18,16 @@ from lidar_transfer_tpu_torch.metrics import compare as TC
 from lidar_transfer_tpu_torch.metrics import confusion as TF
 from lidar_transfer_tpu_torch.metrics import ioueval as TI
 from lidar_transfer_tpu_torch.probes.cases import confusion_labels
+from lidar_transfer_tpu_torch.utils.runtime import cpu_warmup
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _cpu_warmup():
+    """PyTorch's first threaded asin and sqrt of a process on the CPU are
+    at times off in one thread's share: taken here, before this module's
+    tensor work (``utils/runtime.cpu_warmup``)."""
+    cpu_warmup()
+
 
 C = 260
 

@@ -31,6 +31,16 @@ from lidar_transfer_tpu.pipeline import multiscan as JM
 from lidar_transfer_tpu_torch import cli, interop
 from lidar_transfer_tpu_torch.pipeline import deform as TD
 from lidar_transfer_tpu_torch.pipeline import multiscan as TM
+from lidar_transfer_tpu_torch.utils.runtime import cpu_warmup
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _cpu_warmup():
+    """PyTorch's first threaded asin and sqrt of a process on the CPU are
+    at times off in one thread's share: taken here, before this module's
+    tensor work (``utils/runtime.cpu_warmup``)."""
+    cpu_warmup()
+
 
 #: label/mask agreement of two virtual scans (atan2/asin/sqrt ulps move a
 #: few candidates across pixel or voxel boundaries, or break depth ties)

@@ -23,6 +23,7 @@ from lidar_transfer_tpu_torch.ops import tsdf as TS
 from lidar_transfer_tpu_torch.ops.tsdf_cuda import (integrate_chain_cuda,
                                                     integrate_cuda,
                                                     precompute_geometry_cuda)
+from lidar_transfer_tpu_torch.utils.runtime import cpu_warmup
 
 S, H, W = 3, 16, 256
 DIMS = (16, 128, 32)
@@ -32,14 +33,11 @@ PSPEC = TS.VolumeSpec(SPEC.origin, SPEC.voxel_size, SPEC.dims)
 
 
 @pytest.fixture(scope="module", autouse=True)
-def _first_asin():
-    """PyTorch's first large float32 asin of a process on the CPU is at
-    times off by 6e-5 relative in some threads' share (seen in 9 of 40
-    processes; never in a later call, never after this one): enough to
-    move a row of the table a hundredth of a row from an edge. Taken in
-    this fixture, so that no test holds two tables against each other
-    across it."""
-    torch.asin(torch.zeros(1 << 21))
+def _cpu_warmup():
+    """PyTorch's first threaded asin and sqrt of a process on the CPU are
+    at times off in one thread's share: taken here, before this module's
+    tensor work (``utils/runtime.cpu_warmup``)."""
+    cpu_warmup()
 
 
 @pytest.fixture(scope="module")

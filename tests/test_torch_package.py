@@ -28,6 +28,16 @@ from lidar_transfer_tpu_torch.ops.tsdf_cuda import (integrate_chain_cuda,
                                                     precompute_geometry_cuda)
 from lidar_transfer_tpu_torch.pipeline import deform as TD
 from lidar_transfer_tpu_torch.pipeline.multiscan import ScanWindow
+from lidar_transfer_tpu_torch.utils.runtime import cpu_warmup
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _cpu_warmup():
+    """PyTorch's first threaded asin and sqrt of a process on the CPU are
+    at times off in one thread's share: taken here, before this module's
+    tensor work (``utils/runtime.cpu_warmup``)."""
+    cpu_warmup()
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = TransferConfig(voxel_size=0.25,

@@ -30,6 +30,16 @@ from lidar_transfer_tpu.ops import tsdf_pallas as JTP
 from lidar_transfer_tpu_torch import _build
 from lidar_transfer_tpu_torch.probes import __main__ as probes_main
 from lidar_transfer_tpu_torch.probes import ablate, parts, write
+from lidar_transfer_tpu_torch.utils.runtime import cpu_warmup
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _cpu_warmup():
+    """PyTorch's first threaded asin and sqrt of a process on the CPU are
+    at times off in one thread's share: taken here, before this module's
+    tensor work (``utils/runtime.cpu_warmup``)."""
+    cpu_warmup()
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 X, Y, Z, BX = 4, 16, 128, 2
@@ -309,6 +319,125 @@ def test_alias_modes_match_probe_alias(alias_mod, mode):
         np.testing.assert_array_equal(b.float().numpy(), _f32(a))
     if mode != "noalias":
         assert t[0] is tstate[0]                   # written in place
+
+
+# ------------------------------------------------------- the partitions
+#: every block shape and row count ``probes/write.py`` runs at its DIMS, by
+#: byte widths: its write rows, its alias rows, and odd sizes whose runs
+#: end inside a tile
+WRITE_CASES = (
+    [(write.DIMS, (2,), dict(BX=bx, BY=by)) for bx, by in (
+        (1, 1024), (2, 1024), (4, 1024), (8, 1024), (8, 512), (16, 256),
+        (1, 512), (4, 512))]
+    + [(write.DIMS, (w,), dict(BX=4, BY=1024)) for w in (4, 1)]
+    + [(write.DIMS, (2, 2, 2), dict(BX=bx, BY=1024)) for bx in (4, 2)]
+    + [(write.DIMS, (2,), dict(BR=br)) for br in (1024, 4096, 8192)]
+    + [((6, 10, 208), (2, 4, 1), dict(BX=3, BY=5)),
+       ((7, 9, 1040), (1,), dict(BX=7, BY=3)),
+       ((4, 16, 128), (2, 2, 2), dict(BR=16)),
+       ((64, 256, 256), (4,), dict(BX=8, BY=64))])
+
+
+@pytest.mark.parametrize("shape,widths,block", WRITE_CASES)
+def test_write_plan_covers_every_byte_once(shape, widths, block):
+    """write_plan's tiles, one CTA each, mapped as the kernel maps them,
+    cover each output's bytes exactly once."""
+    plan = write.write_plan(shape, widths, **block)
+    assert plan.grid == plan.tiles
+    out, start, end = write.plan_tiles(plan, widths)
+    assert len(out) == plan.tiles and (end > start).all()
+    nbytes = shape[0] * shape[1] * shape[2]
+    for i, w in enumerate(widths):
+        order = np.argsort(start[out == i])
+        s, e = start[out == i][order], end[out == i][order]
+        assert s[0] == 0 and e[-1] == nbytes * w
+        np.testing.assert_array_equal(s[1:], e[:-1])  # no gap, no overlap
+        assert (s % 16 == 0).all() and (e % 16 == 0).all()
+
+
+def test_write_plan_refuses_what_the_kernel_cannot_take():
+    with pytest.raises(ValueError, match="divide"):
+        write.write_plan((4, 16, 128), (2,), BX=3, BY=16)
+    with pytest.raises(ValueError, match="BR"):
+        write.write_plan((4, 16, 128), (2,), BR=5)
+    with pytest.raises(ValueError, match="16 bytes"):
+        write.write_plan((4, 16, 3), (2,), BX=1, BY=1)
+    assert write.write_plan((4, 16, 128), (2,), BX=1,
+                            BY=16).grid == 4      # one tile a run
+    with pytest.raises(ValueError, match="2\\^31"):
+        write.write_plan((1 << 16, 1 << 16, 1 << 12), (4,), BR=1)
+
+
+def _ablate_cover(plan, dims):
+    n = dims[0] * dims[1] * dims[2]
+    got = {"folded": [], "stored": [], "rows": []}
+    for _, folded, stored, rows in ablate.ablate_walk(plan, *dims):
+        got["folded"].append(folded)
+        got["stored"].append(stored)
+        got["rows"].append(rows)
+    counts = {}
+    for k, parts_ in got.items():
+        idx = np.concatenate(parts_)
+        assert idx.min() >= 0, k
+        counts[k] = np.bincount(idx, minlength=n)
+    return counts, n
+
+
+@pytest.mark.parametrize("dims", [(5, 7, 206), (5, 7, 250), (4, 6, 206),
+                                  (3, 5, 256), (5, 7, 204), (2, 4, 13),
+                                  (1, 3, 40)])
+@pytest.mark.parametrize("bx", [1, 2, 4])
+@pytest.mark.parametrize("table_align", [16, 4, 1])
+def test_ablate_plan_covers_every_voxel_once(dims, bx, table_align):
+    """ablate_plan, walked as the kernel walks it (runs of COLS columns,
+    warp w of G on runs w, w + G, ..., chunks of 32 * vec voxels, the
+    (column, z) carry): every voxel folded, stored and its table row loaded
+    exactly once; 4 or 1 voxels a lane where a last run ends inside a wider
+    vector or the table is off its alignment."""
+    X, Y, Z = dims
+    plan = ablate.ablate_plan(X, Y, Z, bx, table_align)
+    whole = [v for v in ablate.VECS
+             if Z % v == 0 or (X * Y) % ablate.COLS == 0]
+    assert plan.vec == max(v for v in whole if table_align % v == 0)
+    assert plan.runs == -(-X * Y // ablate.COLS)
+    assert (plan.grid - 1) * ablate.WARPS * bx < plan.runs \
+        <= plan.grid * ablate.WARPS * bx
+    counts, n = _ablate_cover(plan, dims)
+    for k, c in counts.items():
+        assert c.shape == (n,) and (c == 1).all(), k
+
+
+def test_ablate_plan_fallback_is_needed():
+    """Forced to 8 voxels a lane where the last run ends inside a vector,
+    the walk stores past the volume: what the fallback is for. Outputs off
+    their 16-byte alignment take 4 voxels a lane."""
+    dims = (5, 7, 206)
+    plan = ablate.ablate_plan(*dims, 2)
+    assert plan.vec == 1
+    counts, n = _ablate_cover(plan._replace(vec=8), dims)
+    assert len(counts["stored"]) > n and (counts["folded"] == 1).all()
+    assert ablate.ablate_plan(4, 6, 256, out_align=8).vec == 4
+    assert [ablate.align_of(p) for p in (0x1000, 0x1008, 0x1004, 0x1001)] \
+        == [16, 8, 4, 1]
+    with pytest.raises(ValueError, match="BX"):
+        ablate.ablate_plan(*dims, 0)
+
+
+def test_ablate_any_bx_on_the_cpu(ablate_inputs):
+    """BX no longer needs to divide X: the plain version ignores it."""
+    a = ablate.probe_ablate(True, *ablate_inputs["args"], BX=3)
+    b = ablate.ablate_plain(True, *ablate_inputs["args"])
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_cpu_warmup_steadies_the_first_sqrt():
+    """After the warm-up (this module's fixture) the test cloud's two
+    spherical_angles calls agree bit for bit."""
+    from lidar_transfer_tpu_torch.probes import first_sqrt
+
+    r = first_sqrt.one(warm=True)
+    assert r["differ"] == 0 and r["points"] == 24576
 
 
 # ------------------------------------------------------------- the rules

@@ -17,6 +17,16 @@ from lidar_transfer_tpu.ops import projection as JP
 from lidar_transfer_tpu.ops import transforms as JT
 from lidar_transfer_tpu_torch.ops import projection as TP
 from lidar_transfer_tpu_torch.ops import transforms as TT
+from lidar_transfer_tpu_torch.utils.runtime import cpu_warmup
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _cpu_warmup():
+    """PyTorch's first threaded asin and sqrt of a process on the CPU are
+    at times off in one thread's share: taken here, before this module's
+    tensor work (``utils/runtime.cpu_warmup``)."""
+    cpu_warmup()
+
 
 #: integer images are exact unless an atan2/asin ulp (XLA and PyTorch
 #: round their libm differently) moves a point across a pixel boundary;

@@ -30,6 +30,15 @@ from lidar_transfer_tpu_torch.utils import plyio as TPLY
 from lidar_transfer_tpu_torch.utils import prefetch as TPF
 from lidar_transfer_tpu_torch.utils import runtime as TRT
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _cpu_warmup():
+    """PyTorch's first threaded asin and sqrt of a process on the CPU are
+    at times off in one thread's share: taken here, before this module's
+    tensor work (``utils/runtime.cpu_warmup``)."""
+    TRT.cpu_warmup()
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "lidar_transfer_tpu_torch")
 

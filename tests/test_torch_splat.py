@@ -17,6 +17,16 @@ from lidar_transfer_tpu.ops import projection as JP
 from lidar_transfer_tpu.ops import splat as JSp
 from lidar_transfer_tpu_torch.ops import splat as TSp
 from lidar_transfer_tpu_torch.ops import tsdf as TS
+from lidar_transfer_tpu_torch.utils.runtime import cpu_warmup
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _cpu_warmup():
+    """PyTorch's first threaded asin and sqrt of a process on the CPU are
+    at times off in one thread's share: taken here, before this module's
+    tensor work (``utils/runtime.cpu_warmup``)."""
+    cpu_warmup()
+
 
 VOX = 0.25
 ORIGIN = np.array([-16.0, -16.0, -4.0], np.float32)

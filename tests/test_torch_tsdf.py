@@ -17,6 +17,16 @@ from lidar_transfer_tpu.ops.tsdf_pallas import integrate_pallas
 from lidar_transfer_tpu_torch import interop
 from lidar_transfer_tpu_torch.ops import tsdf as TS
 from lidar_transfer_tpu_torch.ops.tsdf_cuda import integrate_cuda
+from lidar_transfer_tpu_torch.utils.runtime import cpu_warmup
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _cpu_warmup():
+    """PyTorch's first threaded asin and sqrt of a process on the CPU are
+    at times off in one thread's share: taken here, before this module's
+    tensor work (``utils/runtime.cpu_warmup``)."""
+    cpu_warmup()
+
 
 H, W = 16, 256
 DIMS = (16, 128, 30)
