@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-1. Builds the eight CUDA kernels from ``lidar_transfer_tpu_torch/csrc`` (one
+1. Builds the nine CUDA kernels from ``lidar_transfer_tpu_torch/csrc`` (one
    nvcc per source, in parallel) and holds each against its plain PyTorch
    version on the card: the z-buffer bit-exact (without a workspace, and
    with one workspace through a sequence of image sizes and back, N = 0,
@@ -25,10 +25,14 @@
    more cases (C = 260, 20, 1, 37, 1500; N = 0, 1, 131072, 2^20; skewed and
    uniform labels; inputs off their alignment); the three
    probe kernels at 64x256x256 in every variant (the parts probe's int16
-   labels exact and bf16 outputs within one bf16 ulp; the ablate probe bit
-   for bit, also at Z = 206, at an X*Y no warp's column count divides and
-   with a misaligned table; the writes byte for byte in every block,
-   dtype, row, read-first and alias case) (``kernel_checks``).
+   labels exact and bf16 outputs within one bf16 ulp, also at sizes that
+   take 8, 4 and 1 voxels a lane; the ablate probe bit for bit, also at
+   Z = 206, at an X*Y no warp's column count divides and with a misaligned
+   table; the writes byte for byte in every block, dtype, row, read-first
+   and alias case); the raymarch kernel against ``raycast_plain`` in 12
+   cases on a 256x256x96 volume (float32 and compact, shared and per-ray
+   origins, fine steps of 0.5 and 2 voxels, a cut max_steps): hit and label
+   on >= 1 - 1e-4 of rays, range within 1e-4 m (``kernel_checks``).
 2. Drives each path at the reference operating point (HDL64 64x2048
    source, voxel 0.05 m, bounds +-50/+-50/+-5 m, fixed bounds), with the
    launch counts set to 0 just before it and read just after:
@@ -45,21 +49,31 @@
    - catmesh: the CLI as HDL64 -> HDL32, then ``fused_state()``;
    - upsampling, HDL64 -> HDL64x2 (128 beams, the same fov): the CLI per
      frame and with --stream 4;
+   - raymarch: ``TransferEngine(synthesis="raymarch")``, mergemesh, compact
+     state, HDL64 -> HDL32, per frame and streamed (the volume integrated
+     in every frame, the target's rays marched through it);
    - the probes at 1024x1024x256 through ``probes.run`` (the rows of
      ``python -m lidar_transfer_tpu_torch.probes all``).
    Every kernel of a path must have launched in its run.
 3. Checks the outputs: files written, the stream equal to the per-frame run,
    the card's virtual scans against the port's CPU run of the same frame
-   (mergemesh, mesh, cp, upsampling), 16-plane X-slabs of the fused volumes
-   against the plain integrate and the plain chain, a non-empty PLY, a cp
-   identity transfer equal to the source projection bit for bit, catmesh's
-   files and scan equal to mergemesh's bit for bit.
+   (mergemesh, mesh, cp, upsampling; raymarch at +-12.8/+-12.8/+-3.2 m),
+   16-plane X-slabs of the fused volumes against the plain integrate and
+   the plain chain, a non-empty PLY, a cp identity transfer equal to the
+   source projection bit for bit, catmesh's files and scan equal to
+   mergemesh's bit for bit; the march kernel against ``raycast_plain`` on
+   the raymarch frame's 2048x2048x208 volume and 65,536 rays, the raymarch
+   frame beside the splat frame (both-hit share, range difference), and
+   the miss decomposition of the splat and raymarch frames (summing to
+   H * W).
 4. Times each kernel four ways: the wrapper's time (CUDA events around
    back-to-back calls), the device time (the summed durations of the device
    operations of one call, from a ``torch.profiler`` trace), its plain
-   version, and where one PyTorch call computes the same function that
-   call (``scatter_reduce_`` amin, ``bincount``, ``torch.full``: timed
-   here, called by nothing in the port), beside its bound from
+   version, and where PyTorch's library calls compute the same function
+   those calls on the device (for the z-buffer the packing, ``fill_``,
+   ``scatter_reduce_`` amin and the decode; for the confusion counts the
+   cell indices and ``bincount``; ``fill_`` for the writes: timed here,
+   called by nothing in the port), beside its bound from
    ``probes/bounds.py``; every case of the integrate, its chain and the
    z-buffer (``probes/cases.py``); an empty kernel launch; transfer_fast
    per frame of every adaption, the stream rates, fused_state() and
@@ -298,7 +312,7 @@ def _check_probe_kernels(torch, rng, kernels) -> None:
     from lidar_transfer_tpu_torch.ops import tsdf as TS
     from lidar_transfer_tpu_torch.ops.tsdf_cuda import \
         precompute_geometry_cuda
-    from lidar_transfer_tpu_torch.probes import ablate, parts, write
+    from lidar_transfer_tpu_torch.probes import ablate, parts, runs, write
     from lidar_transfer_tpu_torch.probes.timing import max_diff
 
     dev = torch.device("cuda")
@@ -321,12 +335,33 @@ def _check_probe_kernels(torch, rng, kernels) -> None:
                                       BX=bx), ref,
                     f"probe_parts {variant} x{n_out} BX{bx}"))
     upd = ref[0] < 1                                 # full, three outputs
-    print(f"probe_parts {dims}: 4 variants x 1/3 outputs x BX 2/4/8 equal "
-          f"to plain, max |diff| {worst:g}; full updates "
-          f"{float(upd.float().mean()):.4f} of voxels, "
-          f"{int(torch.unique(ref[1][upd]).numel())} labels")
-    check(0.001 < float(upd.float().mean()) < 0.9, "probe_parts updates "
-          "no share of the voxels")
+    share = float(upd.float().mean())
+    labels = int(torch.unique(ref[1][upd]).numel())
+    # sizes a run of 8 columns or an 8-voxel vector does not divide: an X*Y
+    # that 8 does not divide with Z = 206 (one voxel a lane) and Z = 204
+    # (four), and Z = 206 at an X*Y that 8 divides (eight)
+    vecs = set()
+    for odims in ((63, 255, 206), (63, 255, 204), (64, 256, 206)):
+        oargs = [a[:odims[0], :, :odims[1]].contiguous() for a in args[1:]]
+        vecs.add(parts.parts_plan(*odims).vec)
+        for variant in parts.VARIANTS:
+            for n_out in (1, 3):
+                ref = parts.parts_plain(variant, args[0], *oargs, Z=odims[2],
+                                        n_out=n_out)
+                for bx in (2, 3):
+                    worst = max(worst, max_diff(
+                        parts.probe_parts(variant, args[0], *oargs,
+                                          Z=odims[2], n_out=n_out, BX=bx),
+                        ref, f"probe_parts {variant} x{n_out} BX{bx} "
+                        f"{odims}"))
+    print(f"probe_parts {dims}: 4 variants x 1/3 outputs x BX 2/4/8, and "
+          f"at 63x255x206, 63x255x204, 64x256x206 x BX 2/3 ({sorted(vecs)} "
+          f"voxels a lane), equal to plain (labels exact, bf16 within one "
+          f"ulp), max |diff| {worst:g}; full updates {share:.4f} of voxels, "
+          f"{labels} labels")
+    check(vecs == {1, 4, 8}, "probe_parts: a vector width untested")
+    check(0.001 < share < 0.9, "probe_parts updates no share of the "
+          "voxels")
     kernels["probe_parts"] = dict(
         route="cuda", source="lidar_transfer_tpu_torch/csrc/probe_parts.cu",
         replaces="scripts/probe_kernel_parts.py:94", max_abs_err=worst)
@@ -363,7 +398,7 @@ def _check_probe_kernels(torch, rng, kernels) -> None:
                                               adims[2] - 56), dev),
                 dcol, lrcol, table)
         plan = ablate.ablate_plan(
-            *adims, table_align=ablate.align_of(table.data_ptr()))
+            *adims, table_align=runs.align_of(table.data_ptr()))
         vecs.add(plan.vec)
         for div in (True, False):
             ref = ablate.ablate_plain(div, *args)
@@ -452,6 +487,103 @@ def _check_probe_kernels(torch, rng, kernels) -> None:
     kernels["probe_write"] = dict(
         route="cuda", source="lidar_transfer_tpu_torch/csrc/probe_write.cu",
         replaces="scripts/probe_pallas_write.py:40", max_abs_err=0.0)
+    # row 6, the alias probe, is the same kernel: its own JSON row, counted
+    # by the kernel's launches
+    kernels["probe_alias"] = dict(
+        kernels["probe_write"], replaces="scripts/probe_alias.py:31",
+        counter="probe_write")
+
+
+def _march_volume(torch, dev, compact):
+    """A TSDF as the integrate leaves one, 256x256x96 voxels of 0.1 m
+    around the sensor: a ground plane, a wall and a box, tsdf = sdf / trunc
+    in the 5-voxel band and 1 elsewhere, labels 40, 50, 10 and random
+    remissions in the band. -> (state, spec)."""
+    from lidar_transfer_tpu_torch.ops import tsdf as TS
+
+    spec = TS.VolumeSpec((-12.8, -12.8, -3.2), 0.1, (256, 256, 96))
+    g = [spec.origin[i] + np.arange(spec.dims[i]) * spec.voxel_size
+         for i in range(3)]
+    x, y, z = np.meshgrid(*g, indexing="ij")
+    box = np.maximum(np.maximum(np.abs(x + 4) - 1.5, np.abs(y - 5) - 2),
+                     np.abs(z) - 1.5)
+    sdfs = np.stack([z + 1.7, 11.0 - x, box])
+    sdf = sdfs.min(0)
+    trunc = spec.trunc_margin
+    band = np.abs(sdf) < trunc
+    arrays = (np.where(band, np.clip(sdf / trunc, -1, 1), 1.0),
+              np.zeros(spec.dims),
+              np.where(band, np.array([40, 50, 10])[sdfs.argmin(0)], 0),
+              np.where(band, np.random.default_rng(5).random(spec.dims), 0))
+    dts = TS.COMPACT_DTYPES if compact else TS.F32_DTYPES
+    state = TS.TSDFState(*(torch.from_numpy(a).to(dev).to(dt)
+                           for a, dt in zip(arrays, dts)))
+    return state, spec
+
+
+def _compare_marches(torch, got, ref, what: str) -> float:
+    """Hold the kernel's march against the plain one: hit and label equal
+    on >= 1 - 1e-4 of rays, range within 1e-4 m where both hit. -> the
+    largest range difference there."""
+    r = got[0].numel()
+    bad_h = int((got[4] != ref[4]).sum())
+    bad_l = int((got[1] != ref[1]).sum())
+    both = got[4] & ref[4]
+    d = (got[0] - ref[0])[both].abs()
+    worst = float(d.max()) if d.numel() else 0.0
+    print(f"{what}: hit mismatches {bad_h}, label mismatches {bad_l} of "
+          f"{r} rays, {int(both.sum())} both hit, max |range diff| "
+          f"{worst:g} m")
+    check(bad_h <= 1e-4 * r and bad_l <= 1e-4 * r,
+          f"{what}: hit/label disagree on more than 1e-4 of rays")
+    check(worst <= 1e-4, f"{what}: range beyond 1e-4 m")
+    return worst
+
+
+def _check_raymarch_kernel(torch, kernels) -> None:
+    """Phase 1 for the raymarch kernel against ``raycast_plain`` on a
+    synthetic 256x256x96 volume and 32x2048 HDL32 rays: float32 and
+    compact state, a shared origin and (R, 3) origins, the default fine
+    step of 0.5 voxels on the volume's occupancy grid and the engine's 2
+    voxels on the occupancy of points, a max_steps that cuts rays short."""
+    from lidar_transfer_tpu_torch.ops import raycast as RC
+
+    dev = torch.device("cuda")
+    rays = torch.from_numpy(RC.generate_rays(32, 2048, 10.67,
+                                             -30.67)).to(dev)
+    r = rays.shape[0]
+    per_ray = torch.from_numpy(np.random.default_rng(3).uniform(
+        -0.3, 0.3, (r, 3)).astype(np.float32)).to(dev)
+    worst, n = 0.0, 0
+    for compact in (False, True):
+        state, spec = _march_volume(torch, dev, compact)
+        pts = (rays * 6.0).contiguous()
+        for origin in (torch.zeros(3, device=dev), per_ray):
+            for fine, occ, steps in (
+                    (0.5, RC.occupancy_grid(state.tsdf), None),
+                    (2.0, RC.occupancy_from_points(
+                        pts, torch.ones(r, dtype=torch.bool, device=dev),
+                        spec.origin, spec, pixel_angle_rad=0.0076), None),
+                    (0.5, RC.occupancy_grid(state.tsdf), 90)):
+                prm = RC.march_params(spec, spec.origin, 4, fine)
+                steps = steps or RC.default_max_steps(spec, fine)
+                args = (state, occ, rays, origin, prm, spec.dims, 4, steps)
+                got = RC.raymarch(*args)
+                ref = RC.raycast_plain(*args)
+                torch.cuda.synchronize()
+                worst = max(worst, _compare_marches(
+                    torch, got, ref, f"raymarch {spec.dims} "
+                    f"{'compact' if compact else 'f32'} origin "
+                    f"{tuple(origin.shape)} fine {fine} max_steps {steps}"))
+                check(float(ref[4].float().mean()) > 0.1,
+                      "raymarch: no share of the rays hits")
+                n += 1
+        del state
+    print(f"raymarch: {n} cases equal to raycast_plain, max |range diff| "
+          f"{worst:g} m")
+    kernels["raymarch"] = dict(
+        route="cuda", source="lidar_transfer_tpu_torch/csrc/raymarch.cu",
+        replaces="lidar_transfer_tpu/ops/raycast.py:234", max_abs_err=worst)
 
 
 def _check_integrate_cases(torch, rng) -> float:
@@ -618,41 +750,53 @@ def _check_zbuffer_cases(torch, rng) -> None:
           f"plain, {ws.allocations} scratch allocations")
 
 
-def _library_times(torch, pix_t, key_t, npix, pred_t, tgt_t, C):
-    """One PyTorch call that computes the z-buffer's and the confusion's
-    function on inputs prepared beforehand (the packed words; the cell
-    indices): timed here as a yardstick, called by nothing in the port.
-    -> (z-buffer ms, confusion ms), each checked against the kernel's
-    result."""
+def _library_times(torch, pix_t, key_t, npix, pred_t, tgt_t, C) -> dict:
+    """The z-buffer's and the confusion counts' whole function in PyTorch
+    library calls, from the kernels' own inputs, timed here as yardsticks
+    (called by nothing in the port): the packing of (key bits << 32) |
+    index, the reset of the buffer (``fill_``), ``scatter_reduce_`` amin
+    and the decode to winners; the cell indices (pred * C + target, C * C
+    for a stray id) and ``bincount``. Each is checked against its kernel's
+    result. -> {kernel: (wrapper ms, device ms, device operations a
+    call)}."""
     from lidar_transfer_tpu_torch.metrics import confusion as TF
     from lidar_transfer_tpu_torch.ops import projection as TP
 
+    dev = pix_t.device
     n = pix_t.shape[0]
-    words = ((key_t.view(torch.int32).to(torch.int64) << 32)
-             | torch.arange(n, device=pix_t.device))
-    where = torch.where((pix_t < 0) | (pix_t >= npix), npix,
-                        pix_t).to(torch.int64)         # npix: the overflow
     empty = torch.iinfo(torch.int64).max
-    buf = torch.full((npix + 1,), empty, dtype=torch.int64,
-                     device=pix_t.device)
-    z_ms = cuda_ms(lambda: buf.scatter_reduce_(0, where, words, "amin"),
-                   200)
-    win = torch.where(buf[:npix] == empty, -1,
-                      buf[:npix] & 0xFFFFFFFF).to(torch.int32)
-    check(torch.equal(win, TP.zbuffer_winners(pix_t, key_t, npix)),
-          "scatter_reduce_ amin != z-buffer kernel")
-    ok = (pred_t >= 0) & (pred_t < C) & (tgt_t >= 0) & (tgt_t < C)
+    buf = torch.empty(npix + 1, dtype=torch.int64, device=dev)
+
+    def zbuffer():
+        words = ((key_t.view(torch.int32).to(torch.int64) << 32)
+                 | torch.arange(n, device=dev))
+        where = torch.where((pix_t < 0) | (pix_t >= npix), npix,
+                            pix_t).to(torch.int64)     # npix: the overflow
+        buf.fill_(empty)
+        buf.scatter_reduce_(0, where, words, "amin")
+        won = buf[:npix]
+        return torch.where(won == empty, -1,
+                           won & 0xFFFFFFFF).to(torch.int32)
+
+    def confusion():
+        ok = (pred_t >= 0) & (pred_t < C) & (tgt_t >= 0) & (tgt_t < C)
+        cells = torch.where(ok, pred_t * C + tgt_t, C * C).to(torch.int64)
+        return torch.bincount(cells, minlength=C * C + 1)[:C * C].reshape(
+            C, C)
+
+    check(torch.equal(zbuffer(), TP.zbuffer_winners(pix_t, key_t, npix)),
+          "the z-buffer's library function != the z-buffer kernel")
     ref = TF.confusion_matrix(pred_t, tgt_t, C)
-    # the layout of the kernel's counts is found from its result
-    for cells in ((tgt_t * C + pred_t)[ok].to(torch.int64),
-                  (pred_t * C + tgt_t)[ok].to(torch.int64)):
-        if torch.equal(torch.bincount(cells, minlength=C * C).reshape(C, C)
-                       .to(ref.dtype), ref):
-            break
-    else:
-        check(False, "bincount != confusion kernel")
-    c_ms = cuda_ms(lambda: torch.bincount(cells, minlength=C * C), 200)
-    return z_ms, c_ms
+    check(torch.equal(confusion().to(ref.dtype), ref),
+          "the confusion's library function (bincount) != its kernel")
+    out = {}
+    for name, fn in (("zbuffer", zbuffer), ("confusion", confusion)):
+        d_ms, ops, names = device_ms(fn, 50)
+        out[name] = (cuda_ms(fn, 200), d_ms, ops)
+        print(f"{name} library function: wrapper {out[name][0]:.4f} ms, "
+              "device " + ("not measured" if d_ms is None else
+                           f"{d_ms:.4f} ms in {ops} operations ({names})"))
+    return out
 
 
 def kernel_checks(torch, kernels) -> tuple:
@@ -752,6 +896,7 @@ def kernel_checks(torch, kernels) -> tuple:
         max_abs_err=worst)
     _check_fusion_kernels(torch, rng, kernels)
     _check_probe_kernels(torch, rng, kernels)
+    _check_raymarch_kernel(torch, kernels)
     return pix_t, key_t, npix, pred_t, tgt_t, C
 
 
@@ -780,8 +925,7 @@ def main() -> int:
     # ------------------------- 4a. the two small kernels, timed four ways
     ws = TP.ZBufferWorkspace(dev)
     zb = bounds.zbuffer(n, npix)
-    z_lib, c_lib = _library_times(torch, pix_t, key_t, npix, pred_t, tgt_t,
-                                  C)
+    lib = _library_times(torch, pix_t, key_t, npix, pred_t, tgt_t, C)
     call = lambda: TP.zbuffer_winners(pix_t, key_t, npix,  # noqa: E731
                                       workspace=ws)
     small = {"zbuffer": call}
@@ -790,7 +934,9 @@ def main() -> int:
         ms=cuda_ms(call, 200), device_ms=z_dev,
         plain_ms=cuda_ms(lambda: TP.zbuffer_winners_plain(
             pix_t, key_t, npix), 50),
-        bound_ms=zb.ms, bound_by=zb.by, library_ms=z_lib)
+        bound_ms=zb.ms, bound_by=zb.by, library_ms=lib["zbuffer"][1],
+        library_wrapper_ms=lib["zbuffer"][0],
+        library_ops=lib["zbuffer"][2])
     print(f"zbuffer with the engine's workspace: {z_ops:.1f} device "
           f"operations a call ({z_names}), {ws.allocations} scratch "
           f"allocation in {2 + 50 + 2 + 200} calls {tag}")
@@ -808,7 +954,16 @@ def main() -> int:
         ms=cuda_ms(call, 200), device_ms=c_dev,
         plain_ms=cuda_ms(lambda: TF.confusion_scatter(pred_t, tgt_t, C),
                          50),
-        bound_ms=cb.ms, bound_by=cb.by, library_ms=c_lib)
+        bound_ms=cb.ms, bound_by=cb.by, library_ms=lib["confusion"][1],
+        library_wrapper_ms=lib["confusion"][0],
+        library_ops=lib["confusion"][2])
+    for name in ("zbuffer", "confusion"):
+        k = kernels[name]
+        if k["device_ms"] and k["library_ms"]:
+            print(f"{name}: kernel device {k['device_ms']:.4f} ms, its "
+                  f"library function {k['library_ms']:.4f} ms in "
+                  f"{k['library_ops']} operations "
+                  f"({k['library_ms'] / k['device_ms']:.2f} x) {tag}")
 
     # ------------------------------------------------------ 2. the paths
     paths, per_frame = {}, {}
@@ -821,6 +976,9 @@ def main() -> int:
         paths["catmesh"] = _catmesh_path(torch, work, tag, per_frame)
         torch.cuda.empty_cache()
         paths["upsample"] = _upsample_path(torch, work, tag, per_frame)
+        torch.cuda.empty_cache()
+        paths["raymarch"] = _raymarch_path(torch, work, kernels, tag,
+                                           per_frame)
         torch.cuda.empty_cache()
     paths["probes"] = per_frame["probes"] = _probe_path(torch, kernels, tag)
     _kernel_cases(torch, kernels, tag)
@@ -836,9 +994,11 @@ def main() -> int:
     rows = []
     for name, k in kernels.items():
         k.setdefault("library_ms", None)
-        k["launches"] = sum(c[name] for c in paths.values())
+        counter = k.pop("counter", name)
+        k["launches"] = sum(c[counter] for c in paths.values())
         k["launches_per_frame"] = {
-            path: c[name] for path, c in per_frame.items() if c.get(name)}
+            path: c[counter] for path, c in per_frame.items()
+            if c.get(counter)}
         check(k["device_ms"] is not None, f"kernel {name}: the profiler "
               "gave no whole trace of its device operations")
         print(f"kernel {name}: wrapper {k['ms']:.4f} ms, device "
@@ -1078,6 +1238,8 @@ def _main_path(torch, work, kernels, tag, per_frame):
     check(rerr <= 1e-3, "card and CPU ranges disagree")
 
     pts, rem, lbl, valid = merge_window(w0)
+    _miss_decomposition(pts, valid, vs_card, hdl32, "mergemesh splat frame "
+                        "0", tag, eng._zbuf)
     ri = TP.range_project(pts, rem, lbl, valid, H=HDL64.H, W=HDL64.W,
                           fov_up_deg=hdl32.fov_up,
                           fov_down_deg=hdl32.fov_down)
@@ -1531,10 +1693,12 @@ def _probe_path(torch, kernels, tag):
           f"launches on the probe path: {counts}")
     picks = {"probe_parts": ("parts", "full BX2 out x3"),
              "probe_ablate": ("ablate", "precols"),
-             "probe_write": ("alias", "alias_any")}
+             "probe_write": ("write", "BX8 BY1024 bf16 x1"),
+             "probe_alias": ("alias", "alias_any")}
     for name, (probe, row) in picks.items():
-        check(counts[name] > 0, f"kernel {name} never launched on the "
-              "probe path")
+        counter = kernels[name].get("counter", name)
+        check(counts[counter] > 0, f"kernel {counter} never launched on "
+              "the probe path")
         r = next(r for r in rows if (r["probe"], r["row"]) == (probe, row))
         k = kernels[name]
         k.update(ms=r["ms"], device_ms=r["device_ms"],
@@ -1543,12 +1707,17 @@ def _probe_path(torch, kernels, tag):
     for name, b in (
             ("probe_parts", bounds.probe_parts(parts.DIMS, parts.CW, 3)),
             ("probe_ablate", bounds.probe_ablate(ablate.DIMS, ablate.CW)),
-            ("probe_write", bounds.probe_write(
+            ("probe_write", bounds.probe_write(write.DIMS, [2])),
+            ("probe_alias", bounds.probe_write(
                 write.DIMS, [dt.itemsize for dt in write.ALIAS_DTYPES]))):
         kernels[name].update(bound_ms=b.ms, bound_by=b.by)
-    # the one PyTorch call that writes the alias probe's three outputs
-    kernels["probe_write"]["library_ms"] = next(
-        r["ms"] for r in rows if r["row"] == "PyTorch full bfloat16 x3")
+    # PyTorch's fill of the same tensors on the device: one fill_ for the
+    # write row, three for the alias row
+    for name, (probe, row) in picks.items():
+        if name in ("probe_write", "probe_alias"):
+            kernels[name]["library_ms"] = next(
+                r["plain_device_ms"] for r in rows
+                if (r["probe"], r["row"]) == (probe, row))
     # rows 6 and 7 on the device beside PyTorch's fill of the same tensors
     for probe, row, fill in (("write", "BX8 BY1024 bf16 x1", "fill_"),
                              ("write", "2D rows BR8192 bf16 x1", "fill_"),
@@ -1561,6 +1730,170 @@ def _probe_path(torch, kernels, tag):
               + ("not measured" if p is None else f"{p:.4f} ms")
               + ("" if d is None or p is None else f" ({d / p:.3f} x)")
               + f" {tag}")
+    return counts
+
+
+def _miss_decomposition(pts, valid, vs, target, what, tag, workspace=None):
+    """The frame's miss decomposition (``metrics/diagnostics``) from the
+    merged cloud it was transferred from, HDL64's fov as the source's and
+    the reference bounds; the five counts must sum to H * W."""
+    from lidar_transfer_tpu_torch.config import HDL64
+    from lidar_transfer_tpu_torch.metrics.diagnostics import \
+        miss_decomposition
+
+    dec = miss_decomposition(
+        pts, valid, vs.mask, target_H=target.H, target_W=target.W,
+        t_fov_up=target.fov_up, t_fov_down=target.fov_down,
+        s_fov_up=HDL64.fov_up, s_fov_down=HDL64.fov_down,
+        vol_bounds=BOUNDS, workspace=workspace)
+    d = dec.as_dict()
+    check(sum(d.values()) == target.H * target.W and d["hit"] == int(
+        vs.mask.sum()), f"{what}: the miss decomposition does not "
+          "partition the image")
+    print(f"{what} miss decomposition: {d}; rates "
+          + json.dumps({k: round(v, 6) for k, v in dec.rates().items()})
+          + f" {tag}")
+    return d
+
+
+def _raymarch_path(torch, work, kernels, tag, per_frame):
+    """The raymarch synthesis at the reference point on the dataset
+    ``work/kitti``: ``TransferEngine(synthesis="raymarch")``, mergemesh,
+    one scan a window, HDL64 -> HDL32, compact state, fixed bounds, per
+    frame and streamed; the march kernel against ``raycast_plain`` on the
+    frame's full-size volume and rays; the card's frame against the port's
+    CPU run at reduced bounds; the frame against the splat frame; its miss
+    decomposition. Returns the launch counts of the path."""
+    from lidar_transfer_tpu_torch import _build
+    from lidar_transfer_tpu_torch.config import HDL64, SensorSpec
+    from lidar_transfer_tpu_torch.config import TransferConfig
+    from lidar_transfer_tpu_torch.ops import raycast as RC
+    from lidar_transfer_tpu_torch.pipeline import deform as TD
+    from lidar_transfer_tpu_torch.pipeline.multiscan import (load_window,
+                                                             merge_window,
+                                                             stack_windows)
+    from lidar_transfer_tpu_torch.probes import bounds
+
+    dev = torch.device("cuda")
+    cfg, _ = _config(work, "raymarch")
+    hdl32 = SensorSpec.from_yaml(HDL32_PATH)
+    seq, cap = _sequence(work)
+    kw = dict(fixed_bounds=True, synthesis="raymarch", compact_volume=True)
+    eng = TD.TransferEngine(HDL64, hdl32, cfg, device=dev, **kw)
+    wins = [load_window(seq, cfg, i, cap, dev) for i in range(6)]
+    stacked = stack_windows(wins[:4])
+
+    # ------------------------------------------- 2. the path, as a user
+    _build.reset_launch_counts()
+    t = time.perf_counter()
+    per = [eng.transfer_fast(w) for w in wins]
+    sv = eng.transfer_stream(stacked)
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    print(f"raymarch path: 6 frames and a stream of 4 in "
+          f"{time.perf_counter() - t:.2f} s (the geometry table and first "
+          f"allocation included); launches {counts}")
+    for k in ("zbuffer", "tsdf_integrate", "tsdf_geometry", "raymarch"):
+        check(counts[k] > 0, f"kernel {k} never launched on the raymarch "
+              "path")
+    before = _build.launch_counts()
+    vs = eng.transfer_fast(wins[0])
+    per_frame["raymarch"] = _launches_since(before)
+    check(all(torch.equal(getattr(sv, f)[i], getattr(per[i], f))
+              for i in range(4) for f in ("range", "label", "mask")),
+          "raymarch: transfer_stream != per-frame transfer_fast")
+    check(_equal_scans(torch, vs, per[0]), "raymarch: frame 0 twice "
+          "differs")
+
+    # ---------------- 3. the kernel against raycast_plain, full size
+    state = eng.fused_state()
+    check(state.tsdf.dtype == torch.bfloat16
+          and tuple(state.tsdf.shape) == (2048, 2048, 208),
+          f"raymarch volume {state.tsdf.dtype} {tuple(state.tsdf.shape)}")
+    pts, _, _, valid = merge_window(wins[0])
+    spec = eng.vol_spec
+    occ = RC.occupancy_from_points(pts, valid, spec.origin, spec,
+                                   pixel_angle_rad=eng._src_pixel_angle())
+    prm = RC.march_params(spec, spec.origin, 4, 2.0)
+    origin = torch.zeros(3, device=dev)
+    args = (state, occ, eng.rays, origin, prm, spec.dims, 4,
+            RC.default_max_steps(spec, 2.0))
+    got = RC.raymarch(*args)
+    check(torch.equal(got[0].reshape(vs.range.shape), vs.range)
+          and torch.equal(got[4].reshape(vs.mask.shape), vs.mask),
+          "raymarch: the kernel's march != the engine's frame")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    ref = RC.raycast_plain(*args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t) * 1e3
+    err = _compare_marches(torch, got, ref, f"raymarch kernel vs plain, "
+                           f"the frame's {spec.dims} compact volume and "
+                           f"{eng.rays.shape[0]} rays")
+    # what the march's data needs, from a second, instrumented plain march
+    stats = {}
+    RC.raycast_plain(*args, stats=stats)
+    rb = bounds.raymarch(eng.rays.shape[0], origin.reshape(-1, 3).shape[0],
+                         stats["steps"], stats["hits"],
+                         sum(stats["sectors"].values()))
+    d_ms, ops, _ = device_ms(lambda: RC.raymarch(*args), 3)
+    k = kernels["raymarch"]
+    k.update(ms=cuda_ms(lambda: RC.raymarch(*args), 10), device_ms=d_ms,
+             plain_ms=plain_ms, bound_ms=rb.ms, bound_by=rb.by,
+             max_abs_err=max(k["max_abs_err"], err))
+    print(f"raymarch kernel: device "
+          + ("not measured" if d_ms is None else f"{d_ms:.4f} ms in {ops} "
+             "operation(s)") + f", wrapper {k['ms']:.4f} ms, plain "
+          f"{plain_ms:.1f} ms; the march read {stats} (samples a ray "
+          f"{stats['steps'] / eng.rays.shape[0]:.1f}); bound {rb.ms:.4f} ms "
+          f"by {rb.by} ({rb.bytes} bytes) {tag}")
+    del ref, got
+
+    # --------------------------------- 3. the frame's outputs, checked
+    hit = float(vs.mask.float().mean())
+    _miss_decomposition(pts, valid, vs, hdl32, "raymarch frame 0", tag,
+                        eng._zbuf)
+    splat = TD.TransferEngine(HDL64, hdl32, cfg, fixed_bounds=True,
+                              device=dev).transfer_fast(wins[0])
+    both = vs.mask & splat.mask
+    diff = (vs.range - splat.range)[both].abs()
+    q = torch.quantile(diff.float(), torch.tensor([0.5, 0.95], device=dev))
+    print(f"raymarch frame 0 against the splat frame: hit rate {hit:.4f} "
+          f"(splat {float(splat.mask.float().mean()):.4f}), both hit "
+          f"{float(both.float().mean()):.4f} of the target pixels, "
+          f"{float(both.sum()) / max(float(splat.mask.sum()), 1):.4f} of "
+          f"the splat's hits; range difference there median "
+          f"{float(q[0]):.4f} m, p95 {float(q[1]):.4f} m, max "
+          f"{float(diff.max()):.4f} m; labels equal on "
+          f"{float((vs.label == splat.label)[both].float().mean()):.4f}")
+    check(hit > 0.3 and float(both.sum()) > 0.5 * float(splat.mask.sum()),
+          "raymarch frame mostly empty or apart from the splat frame")
+    del state
+
+    # card against the port's CPU run at reduced bounds (the full volume
+    # integrated and marched on the CPU does not fit the time limit)
+    small = TransferConfig(voxel_size=0.05, voxel_bounds=(
+        (-12.8, 12.8), (-12.8, 12.8), (-3.2, 3.2)))
+    vs_small = TD.TransferEngine(HDL64, hdl32, small, device=dev,
+                                 **kw).transfer_fast(
+        load_window(seq, small, 0, cap, dev))
+    t = time.perf_counter()
+    vs_cpu = TD.TransferEngine(HDL64, hdl32, small, device="cpu",
+                               **kw).transfer_fast(
+        load_window(seq, small, 0, cap, "cpu"))
+    print(f"raymarch +-12.8/+-12.8/+-3.2 m on the CPU: "
+          f"{time.perf_counter() - t:.1f} s")
+    _card_vs_cpu(vs_small, vs_cpu, "raymarch +-12.8 m (frame 0)")
+
+    # ------------------------------------------------------ 4. timing
+    frame_ms = cuda_ms(lambda: [eng.transfer_fast(w) for w in wins],
+                       3) / len(wins)
+    stream_ms = cuda_ms(lambda: eng.transfer_stream(stacked), 3)
+    print(f"raymarch transfer_fast HDL64->HDL32 (compact, integrate in the "
+          f"frame): {frame_ms:.3f} ms/frame ({1e3 / frame_ms:.1f} scans/s); "
+          f"transfer_stream 4 frames {stream_ms:.3f} ms; hit rate "
+          f"{hit:.4f} {tag}")
+    _profile_frames(torch, eng, wins, frame_ms, tag)
     return counts
 
 

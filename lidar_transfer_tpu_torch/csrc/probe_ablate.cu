@@ -59,44 +59,23 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "probe_runs.cuh"
+
 namespace {
 
-constexpr int kWarps = 8;  // warps a block
-constexpr int kCols = 8;   // consecutive columns of a run
-constexpr int kMinBlocks = 6;
-constexpr unsigned int kFull = 0xffffffffu;
+using lt::bf16_bits;
+using lt::load_col;
+using lt::tile_to_global;
+using lt::Word;
+constexpr int kWarps = lt::kRunWarps;
+constexpr int kCols = lt::kRunCols;
+constexpr int kMinBlocks = lt::kRunMinBlocks;
+constexpr unsigned int kFull = lt::kAllLanes;
 
 struct AblateParams {
   int X, Y, Z, CW, BX;
   float vox, trunc, inv_trunc;
 };
-
-// kBytes bytes as one access
-template <int kBytes> struct Word;
-template <> struct Word<1> { typedef unsigned char type; };
-template <> struct Word<4> { typedef unsigned int type; };
-template <> struct Word<8> { typedef uint2 type; };
-template <> struct Word<16> { typedef uint4 type; };
-
-__device__ __forceinline__ unsigned short bf16_bits(float v) {
-  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
-}
-
-// A lane's kVec voxels of 2-byte words from the tile to device memory.
-template <int kVec, typename T>
-__device__ __forceinline__ void tile_to_global(const T* tile, T* out, int v) {
-  static_assert(sizeof(T) == 2, "compact words");
-  typedef typename Word<kVec * 2>::type W;
-  __stcs(reinterpret_cast<W*>(out) + v, reinterpret_cast<const W*>(tile)[v]);
-}
-
-// A column word, with a 128-byte prefetch into L2: the four 32-byte
-// sectors of a line belong to the runs of four neighbouring warps
-__device__ __forceinline__ float load_col(const float* p) {
-  float v;
-  asm("ld.global.nc.L2::128B.f32 %0, [%1];" : "=f"(v) : "l"(p));
-  return v;
-}
 
 // Off: the column offsets' type (int where the columns hold < 2^31 words)
 template <bool kDiv, int kVec, typename Off>
@@ -294,18 +273,6 @@ void launch_off(bool small, bool div, unsigned int grid, cudaStream_t st,
                                 dcol, lrcol, v_tab, p);
 }
 
-// kVec voxels a lane where every vector of every run is whole and aligned:
-// a run starts at a multiple of kCols * Z voxels, and only the last, short
-// run of a column count that kCols does not divide can end inside a vector
-bool vec_fits(int vec, int Z, long long ncols, const void* tsdf,
-              const void* label, const void* rem, const void* v_tab) {
-  const uintptr_t outs =
-      (uintptr_t)tsdf | (uintptr_t)label | (uintptr_t)rem;
-  return vec == 1 ||
-         ((Z % vec == 0 || ncols % kCols == 0) && kCols % vec == 0 &&
-          (outs & (2 * vec - 1)) == 0 && ((uintptr_t)v_tab & (vec - 1)) == 0);
-}
-
 }  // namespace
 
 // Writes the (X, Y, Z) compact outputs from params (2, 8) f32, the columns
@@ -324,11 +291,11 @@ extern "C" int lt_probe_ablate(void* out_tsdf, void* out_label, void* out_rem,
                                float inv_trunc, void* stream) {
   if (X <= 0 || Y <= 0 || Z <= 0) return (int)cudaSuccess;
   const long long ncols = (long long)X * Y;
-  const long long runs = (ncols + kCols - 1) / kCols;
-  const long long per_block = (long long)kWarps * BX;
-  if (BX < 1 || grid != (runs + per_block - 1) / per_block ||
+  const uintptr_t outs =
+      (uintptr_t)out_tsdf | (uintptr_t)out_label | (uintptr_t)out_rem;
+  if (BX < 1 || grid != lt::run_grid(ncols, BX) ||
       (vec != 1 && vec != 4 && vec != 8) ||
-      !vec_fits(vec, Z, ncols, out_tsdf, out_label, out_rem, v_tab))
+      !lt::run_vec_fits(vec, Z, ncols, outs, (uintptr_t)v_tab))
     return (int)cudaErrorInvalidValue;
   const AblateParams p{X, Y, Z, CW, BX, vox, trunc, inv_trunc};
   const cudaStream_t st = (cudaStream_t)stream;

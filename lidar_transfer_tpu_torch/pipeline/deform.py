@@ -32,9 +32,14 @@ candidates between adjacent connected source returns
 (``ops/splat._interp_candidates``); such frames take the classic deferred
 mergemesh body, as the JAX engine does by default.
 
+``synthesis="raymarch"`` marches the target's rays through the fused volume
+(``ops/raycast``, the raymarch kernel on the card) in place of the splat.
+The march reads the volume, so it is integrated in every frame (never
+deferred), and ``transfer_fast``/``transfer_stream`` take ``transfer``.
+
 Not ported yet (ROADMAP.md, queue 1), and refused with
-``NotImplementedError`` at construction: raymarch synthesis and catmesh's
-``"oracle"`` engine (per-category marching and a mesh raycast).
+``NotImplementedError`` at construction: catmesh's ``"oracle"`` engine
+(per-category marching and a mesh raycast).
 """
 
 from __future__ import annotations
@@ -48,6 +53,7 @@ import torch
 
 from lidar_transfer_tpu_torch.config import SensorSpec, TransferConfig
 from lidar_transfer_tpu_torch.ops import projection as P
+from lidar_transfer_tpu_torch.ops import raycast as RC
 from lidar_transfer_tpu_torch.ops import tsdf as TS
 from lidar_transfer_tpu_torch.ops.marching import (marching_tetrahedra,
                                                    marching_tetrahedra_cells)
@@ -95,6 +101,8 @@ class TransferEngine:
     # clipped to the cloud (one 6-float host read per frame)
     fixed_bounds: bool = False
     device: torch.device | str = "cuda"
+    # "splat" (band splatting) or "raymarch" (target rays through the
+    # fused volume)
     synthesis: str = "splat"
     # 8 B/voxel state (bf16 tsdf/weight/rem, int16 labels) instead of
     # 16 B/voxel float32
@@ -117,9 +125,9 @@ class TransferEngine:
     interp_angle_deg: float = 3.0
 
     def __post_init__(self):
-        if self.synthesis != "splat":
-            raise NotImplementedError(
-                f"synthesis {self.synthesis!r} {_NOT_PORTED}")
+        if self.synthesis not in ("splat", "raymarch"):
+            raise ValueError(f"synthesis must be 'splat' or 'raymarch': "
+                             f"{self.synthesis!r}")
         if self.mesh_attrs not in ("fold", "volume"):
             raise ValueError(f"mesh_attrs must be 'fold' or 'volume': "
                              f"{self.mesh_attrs!r}")
@@ -137,6 +145,12 @@ class TransferEngine:
                if self.source.beam_angles is not None else None)
         self.t_beam_angles = self._tensor(ba)
         self.s_beam_angles = self._tensor(sba)
+        # the target's rays, built once (the target's beam angles where it
+        # has them)
+        self.rays = self._tensor(RC.generate_rays(
+            t.H, t.W, t.fov_up, t.fov_down, beam_angles=ba))
+        self._s_beam_gap = (float(np.abs(np.diff(np.sort(sba))).max())
+                            if sba is not None and len(sba) > 1 else 0.0)
         vb = self.cfg.voxel_bounds_array
         full_dims = np.ceil((vb[:, 1] - vb[:, 0]) /
                             self.cfg.voxel_size).astype(int)
@@ -289,10 +303,14 @@ class TransferEngine:
             fov_up_deg=fov_up, fov_down_deg=fov_down, origin=origin,
             active_dims=active, v_tab=geom)
 
-    def _synthesize(self, state, origin, active, sources) -> VirtualScan:
+    def _synthesize(self, state, origin, active, sources, pts=None,
+                    valid=None) -> VirtualScan:
         """Band splatting of the fused ``sources``, a list of (range
-        image, fov_up, fov_down); ``state`` is read by the volume
-        attributes alone."""
+        image, fov_up, fov_down), whose ``state`` is read by the volume
+        attributes alone; or, with raymarch synthesis, the march through
+        ``state`` with the occupancy of the fused cloud ``pts``/``valid``."""
+        if self.synthesis == "raymarch":
+            return self._raycast(state, origin, pts, valid)
         srcs = []
         for ri, fu, fd in sources:
             back = P.reverse_project(ri, fov_up_deg=fu, fov_down_deg=fd,
@@ -317,6 +335,33 @@ class TransferEngine:
             workspace=self._zbuf)
         return VirtualScan(range=rng, label=lbl, remission=rem, points=ends,
                            mask=mask, adaption=self.cfg.adaption)
+
+    def _src_pixel_angle(self) -> float:
+        """The largest angle a source pixel spans, the bound of
+        ``occupancy_from_points``' lateral footprint: fov / H for uniform
+        rows, at least the largest gap of a source beam table (cached at
+        construction)."""
+        s = self.source
+        ang = float(np.deg2rad(abs(s.fov_up - s.fov_down))) / max(s.H, 1)
+        return max(ang, self._s_beam_gap)
+
+    def _raycast(self, state, origin, pts, valid) -> VirtualScan:
+        """The target's rays marched through ``state`` from the sensor at
+        the origin: occupancy from the fused points (O(points)), a fine
+        step of 2 voxels (the negative band is at least the 5-voxel
+        truncation thick along any ray, and the trilinear refinement
+        recovers sub-voxel range)."""
+        occ = RC.occupancy_from_points(
+            pts, valid, origin, self.vol_spec,
+            pixel_angle_rad=self._src_pixel_angle())
+        t = self.target
+        res = RC.raycast_tsdf(
+            state, self.vol_spec, self.rays,
+            torch.zeros(3, dtype=torch.float32, device=self.device), t.H,
+            t.W, occ=occ, fine_step=2.0, vol_origin=origin)
+        return VirtualScan(range=res.range, label=res.label,
+                           remission=res.remission, points=res.endpoints,
+                           mask=res.hit, adaption=self.cfg.adaption)
 
     def _defer(self, *, window=None, fusion=None, mode="mergemesh",
                placement=None, origin=None) -> None:
@@ -369,7 +414,8 @@ class TransferEngine:
     # --------------------------------------------------------- mergemesh
     def _merged_image(self, window: ScanWindow):
         """-> (range image of the merged cloud at source dims and target
-        fov, origin, active dims)."""
+        fov, origin, active dims, the merged cloud's points and valid
+        mask)."""
         pts, rem, lbl, valid = merge_window(window)
         t = self.target
         ri = P.range_project(
@@ -377,21 +423,21 @@ class TransferEngine:
             fov_up_deg=t.fov_up, fov_down_deg=t.fov_down,
             beam_angles=self.s_beam_angles, workspace=self._zbuf)
         origin, active = self._frame_volume(pts, valid)
-        return ri, origin, active
+        return ri, origin, active, pts, valid
 
     def _mergemesh_core(self, window: ScanWindow, state, geom=None):
         """Whole-frame body that integrates the volume in the frame."""
-        ri, origin, active = self._merged_image(window)
+        ri, origin, active, pts, valid = self._merged_image(window)
         t = self.target
         state = self._integrate(state, ri, t.fov_up, t.fov_down, origin,
                                 active, reset=True, geom=geom)
         vs = self._synthesize(state, origin, active,
-                              [(ri, t.fov_up, t.fov_down)])
+                              [(ri, t.fov_up, t.fov_down)], pts, valid)
         return vs, ri, state, origin
 
     def _mergemesh_core_deferred(self, window: ScanWindow):
         """Volume-free body: projection and splat only."""
-        ri, origin, active = self._merged_image(window)
+        ri, origin, active, _, _ = self._merged_image(window)
         t = self.target
         vs = self._synthesize(None, origin, active,
                               [(ri, t.fov_up, t.fov_down)])
@@ -402,7 +448,7 @@ class TransferEngine:
         """Merged-cloud adaption with its range image: the volume
         deferred (``defer_volume``) or integrated in the frame."""
         t = self.target
-        if self.defer_volume:
+        if self._defer_active():
             vs, ri, origin, active = self._mergemesh_core_deferred(window)
             self._defer(fusion=(ri, t.fov_up, t.fov_down, origin, active),
                         origin=origin)
@@ -469,7 +515,8 @@ class TransferEngine:
                                       self.source.fov_down, origin, active,
                                       geom)
         vs = self._synthesize(state, origin, active,
-                              self._mesh_sources(ris))
+                              self._mesh_sources(ris),
+                              pts_all.reshape(-1, 3), window.valid.reshape(-1))
         return vs, ris, state, origin
 
     def _mesh_fast_body(self, window: ScanWindow):
@@ -484,7 +531,7 @@ class TransferEngine:
         synthesis with the chain deferred to ``fused_state()``, or (with
         ``mesh_attrs="volume"`` or ``defer_volume=False``) the chain in
         the frame."""
-        if self.defer_volume and self.mesh_attrs == "fold":
+        if self._defer_active() and self.mesh_attrs == "fold":
             vs, ris, origin, active = self._mesh_fast_body(window)
             self._defer(window=window, mode="mesh",
                         placement=(origin, active), origin=origin)
@@ -497,6 +544,11 @@ class TransferEngine:
         return vs, ris[0]
 
     # ---------------------------------------------------------- dispatch
+    def _defer_active(self) -> bool:
+        """The volume is deferred only where the synthesis cannot read it:
+        the splat (mergemesh; mesh with ``mesh_attrs="fold"``)."""
+        return self.defer_volume and self.synthesis == "splat"
+
     def transfer(self, window: ScanWindow
                  ) -> tuple[VirtualScan, P.RangeImage]:
         adaption = self.cfg.adaption
@@ -515,9 +567,10 @@ class TransferEngine:
         """Transfer one window without its range image; for mergemesh and
         catmesh the volume stays deferred (see :meth:`fused_state`). A
         denser target takes the classic deferred body (``transfer``),
-        whose range image the chords are drawn in."""
+        whose range image the chords are drawn in; raymarch synthesis
+        takes ``transfer``, which integrates the volume it marches."""
         if (self.cfg.adaption not in ("mergemesh", "catmesh")
-                or self._interp_active):
+                or self._interp_active or self.synthesis != "splat"):
             return self.transfer(window)[0]
         (rng, lbl, rem, ends, mask), origin = \
             self._mergemesh_core_fast(window)
@@ -592,7 +645,7 @@ class TransferEngine:
                     active, self._ensure_geom(s.fov_up, s.fov_down, s.H))
                 self._fused_now(state, origin, self._mesh_sources(ris))
                 return state
-            ri, origin, active = self._merged_image(w)
+            ri, origin, active, _, _ = self._merged_image(w)
             t = self.target
             pend = (ri, t.fov_up, t.fov_down, origin, active)
             self._pending_fusion = pend

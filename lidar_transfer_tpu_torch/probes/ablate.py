@@ -17,8 +17,6 @@ is the same function in PyTorch, which a CPU tensor takes.
 
 from __future__ import annotations
 
-from typing import NamedTuple
-
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -26,6 +24,7 @@ import torch.nn.functional as F
 from lidar_transfer_tpu_torch import _build
 from lidar_transfer_tpu_torch.ops.projection import deg2rad32
 from lidar_transfer_tpu_torch.probes.parts import _check_inputs
+from lidar_transfer_tpu_torch.probes.runs import RunPlan, align_of, run_plan
 
 DIMS = (1024, 1024, 256)
 #: the script's images, column width, placement and fov
@@ -34,86 +33,14 @@ ORIGIN = (-25.6, -25.6, -6.4)
 VOXEL, TRUNC = 0.05, 0.25
 FOV_UP, FOV_DOWN = 3.0, -25.0
 OUT_DTYPES = (torch.bfloat16, torch.int16, torch.bfloat16)
-#: the kernel's partition (``csrc/probe_ablate.cu``): columns of a run,
-#: warps of a block, the voxels a lane may move per access (widest first)
-COLS, WARPS, VECS = 8, 8, (8, 4, 1)
-
-
-class AblatePlan(NamedTuple):
-    """How kernel ``probe_ablate`` splits an (X, Y, Z) volume: ``runs`` of
-    COLS consecutive (x, y) columns (the last may be short), ``bx`` of them
-    walked in turn by each warp (warp w of the grid's G takes runs w,
-    w + G, ...), ``grid`` blocks of WARPS warps, ``vec`` voxels a lane
-    moves per access: 8, or 4 or 1 where a last run ends inside a wider
-    vector or a pointer is off its alignment."""
-
-    runs: int
-    bx: int
-    grid: int
-    vec: int
 
 
 def ablate_plan(X: int, Y: int, Z: int, BX: int = 2, table_align: int = 16,
-                out_align: int = 16) -> AblatePlan:
-    """The partition the wrapper launches; ``table_align`` and
-    ``out_align``: the bytes the table's and the outputs' pointers are
-    aligned to (a lane's vec table bytes and 2 * vec output bytes move as
-    one access)."""
-    if BX < 1:
-        raise ValueError(f"probe_ablate: BX={BX} must be >= 1")
-    cols = X * Y
-    runs = -(-cols // COLS)
-    grid = -(-runs // (WARPS * BX))
-    vec = next(v for v in VECS if v == 1 or (
-        (Z % v == 0 or cols % COLS == 0) and table_align % v == 0
-        and out_align % (2 * v) == 0))
-    return AblatePlan(runs, BX, grid, vec)
-
-
-def align_of(ptr: int) -> int:
-    """The largest power of two up to 16 that divides ``ptr``."""
-    return min(16, ptr & -ptr) if ptr else 16
-
-
-def ablate_walk(plan: AblatePlan, X: int, Y: int, Z: int):
-    """What each warp of ``plan`` does, run by run, as the kernel walks:
-    yields (run, folded, stored, rows), arrays of the voxel indices
-    (into the flat (X, Y, Z) volume) the lanes fold, store and whose table
-    rows they load, in the kernel's order of chunks and steps. The fold's
-    index comes from the kernel's carry walk of (column, z)."""
-    cols = X * Y
-    lanes = np.arange(32)
-    warps = plan.grid * WARPS
-    for warp in range(warps):
-        for k in range(plan.bx):
-            run = warp + k * warps
-            col0 = run * COLS
-            if col0 >= cols:
-                break
-            n = min(COLS, cols - col0) * Z
-            base = col0 * Z
-            c, z = lanes // Z, lanes % Z
-            folded, stored, rows = [], [], []
-            chunk = 32 * plan.vec
-            for i0 in range(0, n, chunk):
-                starts = i0 + lanes * plan.vec
-                have = starts < n
-                rows.append(base + (starts[have, None]
-                                    + np.arange(plan.vec)).ravel())
-                for j in range(plan.vec):
-                    i = i0 + j * 32 + lanes
-                    live = i < n
-                    folded.append(base + c[live] * Z + z[live])
-                    if plan.vec == 1:
-                        stored.append(base + i[live])
-                    z = z + 32
-                    while (z >= Z).any():
-                        c = np.where(z >= Z, c + 1, c)
-                        z = np.where(z >= Z, z - Z, z)
-                if plan.vec > 1:
-                    stored.append(rows[-1])
-            yield (run, np.concatenate(folded), np.concatenate(stored),
-                   np.concatenate(rows))
+                out_align: int = 16) -> RunPlan:
+    """The partition the wrapper launches (``probes/runs.py``, the
+    layout of ``csrc/probe_runs.cuh``); the table is read ``vec`` bytes a
+    lane, so its alignment too can narrow ``vec``."""
+    return run_plan(X, Y, Z, BX, table_align, out_align, "probe_ablate")
 
 
 def make_images(device="cpu", seed: int = 0, H: int = H, W: int = W):
@@ -229,7 +156,7 @@ def probe_ablate(div: bool, params, dcol, lrcol, v_tab, *, BX: int = 2,
         return ablate_plain(div, params, dcol, lrcol, v_tab,
                             voxel_size=voxel_size, trunc=trunc)
     X, cw, Y = dcol.shape
-    _check_inputs("probe_ablate", params, (dcol, lrcol), X, 1)
+    _check_inputs("probe_ablate", params, (dcol, lrcol))
     if (v_tab.device != dcol.device or v_tab.dtype != torch.int8
             or not v_tab.is_contiguous() or v_tab.dim() != 3
             or tuple(v_tab.shape[:2]) != (X, Y)):

@@ -128,3 +128,27 @@ def probe_ablate(dims, cw: int) -> Bound:
 def probe_write(dims, widths) -> Bound:
     """Rows 6 and 7: one output of each byte width in ``widths`` written."""
     return bound(dims[0] * dims[1] * dims[2] * sum(widths))
+
+
+#: the granularity of a gather from device memory (bytes)
+SECTOR = 32
+#: trilinear samples of a hit's refinement (the bracket's two ends and 10
+#: bisection steps)
+REFINE_SAMPLES = 12
+
+
+def raymarch(rays: int, origin_rows: int, samples: int, hits: int,
+             sectors: int) -> Bound:
+    """Row B for the counts one march's data needs (``ops/raycast.
+    raycast_plain``'s ``stats``): the ``sectors`` distinct 32-byte sectors
+    its gathers touch (occupancy bytes of the samples inside the box, tsdf
+    words of the occupied ones and of each hit's refinement corners, the
+    label and remission of each hit), each counted once however often the
+    march reads it; the rays and the ``origin_rows`` origins (1 shared, or
+    one a ray) read, 12 B each; the outputs (range, label, remission,
+    endpoints, hit: 25 B a ray) written. A sample's float32 operations
+    (its position, grid coordinate, test and step, 20) and a refinement's
+    (12 samples of 40) count too; ``samples`` is every sample, the seed
+    sample included."""
+    nbytes = SECTOR * sectors + 12 * (rays + origin_rows) + 25 * rays
+    return bound(nbytes, 20 * samples + 40 * REFINE_SAMPLES * hits)

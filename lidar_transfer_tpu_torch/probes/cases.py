@@ -27,7 +27,9 @@ padded points):
           variant, ``csrc/confusion.cu``, which was measured and not kept);
   frame   three mergemesh frames (HDL64 to HDL32, ``transfer_fast``): the
           device operations they issue;
-  probes  rows 4, 6 and 7 at the probe scripts' 1024x1024x256: the ablate
+  probes  rows 4 to 7 at the probe scripts' 1024x1024x256: the parts
+          kernel in the script's rows (each variant with three outputs at
+          BX 2, full with one output, full at BX 4 and 8); the ablate
           kernel, precols and nodiv at BX 1, 2 and 4, beside the real
           compact integrate with the table on the same images and table;
           the write kernel, bf16 x1 at BX8 BY1024 and in flat rows of
@@ -288,14 +290,28 @@ def _frame_case(case, scans, dev) -> None:
 
 
 def _probe_cases(case, dev) -> None:
-    """Rows 4, 6 and 7 of the kernel table, each beside what it is held
-    to: the real integrate (row 4) and PyTorch's fill (rows 6 and 7)."""
+    """Rows 4 to 7 of the kernel table, rows 4, 6 and 7 each beside what it
+    is held to: the real integrate (row 4) and PyTorch's fill (rows 6 and
+    7)."""
     import torch
 
     from lidar_transfer_tpu_torch.ops import tsdf as TS
     from lidar_transfer_tpu_torch.ops.tsdf_cuda import (
         integrate_cuda, precompute_geometry_cuda)
-    from lidar_transfer_tpu_torch.probes import ablate, bounds, write
+    from lidar_transfer_tpu_torch.probes import ablate, bounds, parts, write
+
+    dims = parts.DIMS
+    tag = "x".join(map(str, dims))
+    cols = parts.make_inputs(dims, dev)
+    for variant, n_out, bx in ([(v, 3, 2) for v in parts.VARIANTS]
+                               + [("full", 1, 2), ("full", 3, 4),
+                                  ("full", 3, 8)]):
+        case(f"parts {variant} BX{bx} x{n_out} {tag}",
+             lambda: parts.probe_parts(variant, *cols, Z=dims[2],
+                                       n_out=n_out, BX=bx),
+             bounds.probe_parts(dims, parts.CW, n_out), 20, 3)
+    del cols
+    torch.cuda.empty_cache()
 
     dims = ablate.DIMS
     tag = "x".join(map(str, dims))

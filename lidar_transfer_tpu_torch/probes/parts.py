@@ -10,9 +10,11 @@ cases:
   nogather   every voxel reads its column's image row 0
   full       geometry, the row gather, the reset-mode rule, the writes
 
-with 1 or 3 outputs (tsdf bf16, label int16, remission bf16) and BX x-planes
-per block. :func:`parts_plain` is the same function in PyTorch, which a CPU
-tensor takes.
+with 1 or 3 outputs (tsdf bf16, label int16, remission bf16); BX, the
+script's x-planes a grid step, is the runs of 8 columns a warp walks
+(:func:`parts_plan`, the layout of ``csrc/probe_runs.cuh``).
+:func:`parts_plain` is the same function in PyTorch, which a CPU tensor
+takes.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import numpy as np
 import torch
 
 from lidar_transfer_tpu_torch import _build
+from lidar_transfer_tpu_torch.probes.runs import RunPlan, align_of, run_plan
 
 VARIANTS = ("writeonly", "nogeom", "nogather", "full")
 OUT_DTYPES = (torch.bfloat16, torch.int16, torch.bfloat16)
@@ -98,28 +101,38 @@ def parts_plain(variant: str, params, dcol, lrcol, *, Z: int, n_out: int = 3,
     return tuple(val.to(dt) for val, dt in zip(vals[:n_out], OUT_DTYPES))
 
 
+def parts_plan(X: int, Y: int, Z: int, BX: int = 2,
+               out_align: int = 16) -> RunPlan:
+    """The partition the wrapper launches (``probes/runs.py``): runs of 8
+    columns, ``BX`` of them a warp, 8, 4 or 1 voxels a lane by the sizes
+    and ``out_align``, the bytes the outputs' pointers are aligned to."""
+    return run_plan(X, Y, Z, BX, 16, out_align, "probe_parts")
+
+
 def probe_parts(variant: str, params, dcol, lrcol, *, Z: int,
                 n_out: int = 3, BX: int = 2, H: int = H,
                 voxel_size: float = VOXEL, trunc: float = TRUNC):
     """The variant's outputs: kernel ``probe_parts`` on the card, the plain
-    version for CPU tensors; ``BX`` x-planes per block (the kernel's only
-    tuning knob; the outputs do not depend on it)."""
+    version for CPU tensors; ``BX`` runs of 8 columns a warp
+    (:func:`parts_plan`; the outputs do not depend on it)."""
     if dcol.device.type == "cpu":
         return parts_plain(variant, params, dcol, lrcol, Z=Z, n_out=n_out,
                            H=H, voxel_size=voxel_size, trunc=trunc)
     _check_variant(variant, n_out)
     X, cw, Y = dcol.shape
-    _check_inputs("probe_parts", params, (dcol, lrcol), X, BX)
+    _check_inputs("probe_parts", params, (dcol, lrcol))
     if not 0 < H <= cw:
         raise ValueError(f"probe_parts: H {H} must be in [1, CW={cw}]")
     dev = dcol.device
     outs = [torch.empty((X, Y, Z), dtype=dt, device=dev)
             for dt in OUT_DTYPES[:n_out]]
+    plan = parts_plan(X, Y, Z, BX, min(align_of(o.data_ptr()) for o in outs))
     ptrs = [o.data_ptr() for o in outs] + [None] * (3 - n_out)
     _build.launch("probe_parts", "lt_probe_parts", *ptrs, params.data_ptr(),
                   dcol.data_ptr(), lrcol.data_ptr(), VARIANTS.index(variant),
-                  n_out, X, Y, Z, H, cw, BX, float(np.float32(voxel_size)),
-                  float(np.float32(trunc)), _build.stream_handle(dev))
+                  n_out, X, Y, Z, H, cw, BX, plan.grid, plan.vec,
+                  float(np.float32(voxel_size)), float(np.float32(trunc)),
+                  _build.stream_handle(dev))
     return tuple(outs)
 
 
@@ -130,9 +143,9 @@ def _check_variant(variant, n_out):
         raise ValueError(f"n_out must be 1 or 3, got {n_out}")
 
 
-def _check_inputs(name, params, cols, X, BX):
+def _check_inputs(name, params, cols):
     """Raise unless params is a (2, 8) and every column a contiguous
-    float32 tensor on one CUDA device, with X a multiple of BX."""
+    float32 tensor on one CUDA device."""
     dev = cols[0].device
     if dev.type != "cuda":
         raise ValueError(f"{name}: inputs on {dev}")
@@ -146,8 +159,6 @@ def _check_inputs(name, params, cols, X, BX):
                          f"{tuple(params.shape)}")
     if any(c.shape != cols[0].shape for c in cols) or cols[0].dim() != 3:
         raise ValueError(f"{name}: columns must share one (X, CW, Y) shape")
-    if BX < 1 or X % BX:
-        raise ValueError(f"{name}: X={X} is not a multiple of BX={BX}")
 
 
 def run(iters: int = 50, plain_iters: int = 3, dims=DIMS, tag: str = ""):

@@ -103,3 +103,22 @@ def test_zbuffer_scratch_figure():
     assert bounds.confusion(131072, 260).bytes == pytest.approx(1.3e6,
                                                                 rel=0.02)
     assert with_scratch.ms < 0.0015        # about a microsecond: one launch
+
+
+def test_raymarch_counts_sectors_of_what_the_march_read():
+    """Row B: 32 B for each distinct sector that the march's gathers
+    touch, 12 B of ray and of each origin row and 25 B of outputs a ray;
+    a sample's 20 float32 operations and a hit's 12 trilinear samples of
+    40. The reference raymarch frame's counts (65,536 rays, one origin,
+    9,165,518 samples, 38,515 hits; 397,418 occupancy, 1,685,450 tsdf,
+    20,751 label and 20,751 remission sectors) -> 70,404,684 bytes,
+    0.0210 ms."""
+    b = bounds.raymarch(65536, 1, 9165518, 38515,
+                        397418 + 1685450 + 20751 + 20751)
+    assert b.bytes == 32 * 2124370 + 12 * 65537 + 25 * 65536 == 70404684
+    assert b.by == "bytes"
+    assert b.ms == pytest.approx(0.02102, abs=5e-6)
+    assert bounds.raymarch(10, 10, 0, 0, 0).bytes == 490
+    assert bounds.raymarch(10, 1, 0, 0, 0).bytes == 382
+    assert bounds.raymarch(1, 1, 100, 0, 0).flops == 2000
+    assert bounds.raymarch(1, 1, 0, 1, 0).flops == 480

@@ -67,8 +67,9 @@ def test_build_needs_no_nvcc_until_a_launch(tmp_path, monkeypatch):
     """_build imports without nvcc; a build without nvcc raises."""
     names = sorted(p.name for p in _build.sources())
     assert names == ["confusion.cu", "errors.cu", "probe_ablate.cu",
-                     "probe_parts.cu", "probe_write.cu", "tsdf_common.cuh",
-                     "tsdf_geometry.cu", "tsdf_integrate.cu", "zbuffer.cu"]
+                     "probe_parts.cu", "probe_runs.cuh", "probe_write.cu",
+                     "raymarch.cu", "tsdf_common.cuh", "tsdf_geometry.cu",
+                     "tsdf_integrate.cu", "zbuffer.cu"]
     assert _build.library_path().name.startswith("_ltkernels-")
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
     monkeypatch.setenv("PATH", str(tmp_path))
@@ -92,8 +93,8 @@ def _small_window(spec, nscans=1):
 
 def test_cpu_calls_launch_no_kernel(small_spec):
     """CPU tensors take the plain versions: every launch count stays 0,
-    on the mergemesh path and on the mesh path with its chain and
-    geometry table."""
+    on the mergemesh path, on the mesh path with its chain and geometry
+    table, and on the raymarch path."""
     _build.reset_launch_counts()
     eng = TD.TransferEngine(small_spec, small_spec, CFG, fixed_bounds=True,
                             device="cpu")
@@ -111,10 +112,14 @@ def test_cpu_calls_launch_no_kernel(small_spec):
     state = mesh.fused_state()
     assert bool(vm.mask.any()) and bool((state.tsdf < 1).any())
     assert len(mesh._geoms) == 1
+    march = TD.TransferEngine(small_spec, small_spec, CFG,
+                              fixed_bounds=True, device="cpu",
+                              synthesis="raymarch", compact_volume=True)
+    assert bool(march.transfer_fast(_small_window(small_spec)).mask.any())
     assert _build.launch_counts() == {
         "zbuffer": 0, "confusion": 0, "tsdf_integrate": 0,
         "tsdf_integrate_chain": 0, "tsdf_geometry": 0, "probe_parts": 0,
-        "probe_ablate": 0, "probe_write": 0}
+        "probe_ablate": 0, "probe_write": 0, "raymarch": 0}
 
 
 def test_extra_nvcc_flags_name_another_library(monkeypatch):
@@ -134,17 +139,22 @@ def test_extra_nvcc_flags_name_another_library(monkeypatch):
 
 @pytest.mark.parametrize("case", ["raymarch", "catmesh_oracle"])
 def test_engine_refuses_unported(case):
-    """Raymarch synthesis and catmesh's oracle engine raise
-    NotImplementedError instead of routing elsewhere; the cp and catmesh
-    adaptions and a denser target construct."""
-    kw, cfg = {}, CFG
+    """Catmesh's oracle engine raises NotImplementedError instead of
+    routing elsewhere; raymarch synthesis, ported since, constructs with
+    the target's rays, and a synthesis the engine does not know raises
+    ValueError; the cp and catmesh adaptions and a denser target
+    construct."""
     if case == "raymarch":
-        kw = dict(synthesis="raymarch")
+        eng = TD.TransferEngine(HDL64, HDL32, CFG, device="cpu",
+                                synthesis="raymarch")
+        assert tuple(eng.rays.shape) == (HDL32.H * HDL32.W, 3)
+        with pytest.raises(ValueError, match="synthesis"):
+            TD.TransferEngine(HDL64, HDL32, CFG, device="cpu",
+                              synthesis="mesh")
     else:
-        cfg = TransferConfig(adaption="catmesh")
-        kw = dict(catmesh_engine="oracle")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TD.TransferEngine(HDL64, HDL32, cfg, device="cpu", **kw)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            TD.TransferEngine(HDL64, HDL32, TransferConfig(
+                adaption="catmesh"), device="cpu", catmesh_engine="oracle")
     dense = SensorSpec(name="dense", beams=128, fov_up=3.0, fov_down=-25.0,
                        angle_res_hor=360.0 / 2048.0)
     for adaption, target in (("cp", HDL32), ("catmesh", HDL32),

@@ -29,7 +29,7 @@ from lidar_transfer_tpu.ops import tsdf as JTS
 from lidar_transfer_tpu.ops import tsdf_pallas as JTP
 from lidar_transfer_tpu_torch import _build
 from lidar_transfer_tpu_torch.probes import __main__ as probes_main
-from lidar_transfer_tpu_torch.probes import ablate, parts, write
+from lidar_transfer_tpu_torch.probes import ablate, parts, runs, write
 from lidar_transfer_tpu_torch.utils.runtime import cpu_warmup
 
 
@@ -371,7 +371,7 @@ def test_write_plan_refuses_what_the_kernel_cannot_take():
 def _ablate_cover(plan, dims):
     n = dims[0] * dims[1] * dims[2]
     got = {"folded": [], "stored": [], "rows": []}
-    for _, folded, stored, rows in ablate.ablate_walk(plan, *dims):
+    for _, folded, stored, rows in runs.run_walk(plan, *dims):
         got["folded"].append(folded)
         got["stored"].append(stored)
         got["rows"].append(rows)
@@ -396,12 +396,12 @@ def test_ablate_plan_covers_every_voxel_once(dims, bx, table_align):
     vector or the table is off its alignment."""
     X, Y, Z = dims
     plan = ablate.ablate_plan(X, Y, Z, bx, table_align)
-    whole = [v for v in ablate.VECS
-             if Z % v == 0 or (X * Y) % ablate.COLS == 0]
+    whole = [v for v in runs.VECS
+             if Z % v == 0 or (X * Y) % runs.COLS == 0]
     assert plan.vec == max(v for v in whole if table_align % v == 0)
-    assert plan.runs == -(-X * Y // ablate.COLS)
-    assert (plan.grid - 1) * ablate.WARPS * bx < plan.runs \
-        <= plan.grid * ablate.WARPS * bx
+    assert plan.runs == -(-X * Y // runs.COLS)
+    assert (plan.grid - 1) * runs.WARPS * bx < plan.runs \
+        <= plan.grid * runs.WARPS * bx
     counts, n = _ablate_cover(plan, dims)
     for k, c in counts.items():
         assert c.shape == (n,) and (c == 1).all(), k
@@ -417,10 +417,46 @@ def test_ablate_plan_fallback_is_needed():
     counts, n = _ablate_cover(plan._replace(vec=8), dims)
     assert len(counts["stored"]) > n and (counts["folded"] == 1).all()
     assert ablate.ablate_plan(4, 6, 256, out_align=8).vec == 4
-    assert [ablate.align_of(p) for p in (0x1000, 0x1008, 0x1004, 0x1001)] \
+    assert [runs.align_of(p) for p in (0x1000, 0x1008, 0x1004, 0x1001)] \
         == [16, 8, 4, 1]
     with pytest.raises(ValueError, match="BX"):
         ablate.ablate_plan(*dims, 0)
+
+
+@pytest.mark.parametrize("dims", [(5, 7, 206), (5, 7, 250), (3, 5, 256),
+                                  (5, 7, 204), (2, 4, 13), (1, 3, 40),
+                                  (4, 6, 128)])
+@pytest.mark.parametrize("bx", [1, 2, 4, 8])
+@pytest.mark.parametrize("out_align", [16, 8, 2])
+def test_parts_plan_covers_every_voxel_once(dims, bx, out_align):
+    """parts_plan, walked as the parts kernel walks it (runs of COLS
+    columns dealt to the warps in turn, BX of them a warp, chunks of
+    32 * vec voxels, the (column, z) carry): every voxel folded and stored
+    exactly once, for an X*Y that COLS does not divide, a Z that 8 does
+    not divide and BX 1 to 8; 4 or 1 voxels a lane where a last run ends
+    inside a wider vector or the outputs are off their alignment."""
+    X, Y, Z = dims
+    plan = parts.parts_plan(X, Y, Z, bx, out_align)
+    whole = [v for v in runs.VECS
+             if Z % v == 0 or (X * Y) % runs.COLS == 0]
+    assert plan.vec == max(v for v in whole if out_align % (2 * v) == 0)
+    assert plan == ablate.ablate_plan(X, Y, Z, bx, 16, out_align)
+    counts, n = _ablate_cover(plan, dims)
+    for k in ("folded", "stored"):
+        assert counts[k].shape == (n,) and (counts[k] == 1).all(), k
+
+
+def test_parts_plan_odd_sizes_take_narrow_vectors():
+    """The reference size takes 8 voxels a lane; an X*Y that COLS does not
+    divide with Z = 206 takes one, with Z = 204 four; BX need not divide
+    X; BX < 1 raises."""
+    assert parts.parts_plan(*parts.DIMS, 2).vec == 8
+    assert parts.parts_plan(5, 7, 206, 2).vec == 1
+    assert parts.parts_plan(5, 7, 204, 2).vec == 4
+    plan = parts.parts_plan(1024, 1024, 256, 3)
+    assert plan.grid * runs.WARPS * 3 >= plan.runs == 1024 * 1024 // 8
+    with pytest.raises(ValueError, match="BX"):
+        parts.parts_plan(4, 4, 8, 0)
 
 
 def test_ablate_any_bx_on_the_cpu(ablate_inputs):
