@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-1. Builds the nine CUDA kernels from ``lidar_transfer_tpu_torch/csrc`` (one
+1. Builds the ten CUDA kernels from ``lidar_transfer_tpu_torch/csrc`` (one
    nvcc per source, in parallel) and holds each against its plain PyTorch
    version on the card: the z-buffer bit-exact (without a workspace, and
    with one workspace through a sequence of image sizes and back, N = 0,
@@ -29,10 +29,15 @@
    take 8, 4 and 1 voxels a lane; the ablate probe bit for bit, also at
    Z = 206, at an X*Y no warp's column count divides and with a misaligned
    table; the writes byte for byte in every block, dtype, row, read-first
-   and alias case); the raymarch kernel against ``raycast_plain`` in 12
-   cases on a 256x256x96 volume (float32 and compact, shared and per-ray
-   origins, fine steps of 0.5 and 2 voxels, a cut max_steps): hit and label
-   on >= 1 - 1e-4 of rays, range within 1e-4 m (``kernel_checks``).
+   and alias case); the packing of the raymarch's occupancy into bits
+   word for word (12 grids up to 512x512x52 cells, counts the 4x4x2 brick
+   does not divide); the raymarch kernel against ``raycast_plain`` in 24
+   cases on a 256x256x96 volume and 65,536 rays, equal on every ray, bit
+   for bit (float32 and compact, a shared origin, jittered per-ray origins
+   and a rolling sensor's, fine steps of 0.5 and 2 voxels, max_steps cut
+   at 90 and at K - 1, K and K + 1 past a ray's sixth batch of K samples,
+   rays that start inside negative space; rays ending at t_far after a
+   sample count K does not divide counted) (``kernel_checks``).
 2. Drives each path at the reference operating point (HDL64 64x2048
    source, voxel 0.05 m, bounds +-50/+-50/+-5 m, fixed bounds), with the
    launch counts set to 0 just before it and read just after:
@@ -52,6 +57,10 @@
    - raymarch: ``TransferEngine(synthesis="raymarch")``, mergemesh, compact
      state, HDL64 -> HDL32, per frame and streamed (the volume integrated
      in every frame, the target's rays marched through it);
+   - rolling shutter: frame 0 re-cast over the dataset's next pose by
+     ``resynthesize_rolling_shutter``'s three engines (the splat engine's
+     winners, the raymarch engine's band samples, the march with one
+     origin a ray through its volume);
    - the probes at 1024x1024x256 through ``probes.run`` (the rows of
      ``python -m lidar_transfer_tpu_torch.probes all``).
    Every kernel of a path must have launched in its run.
@@ -62,10 +71,13 @@
    the plain chain, a non-empty PLY, a cp identity transfer equal to the
    source projection bit for bit, catmesh's files and scan equal to
    mergemesh's bit for bit; the march kernel against ``raycast_plain`` on
-   the raymarch frame's 2048x2048x208 volume and 65,536 rays, the raymarch
-   frame beside the splat frame (both-hit share, range difference), and
-   the miss decomposition of the splat and raymarch frames (summing to
-   H * W).
+   the raymarch frame's 2048x2048x208 volume and 65,536 rays, and on the
+   rolling raymarch engine's (R, 3)-origin march, equal on every ray, the
+   raymarch frame beside the splat frame (both-hit share, range
+   difference), the rolling splat frame with the identity pose against
+   the static frame, each rolling engine's frame against the port's CPU
+   run at +-12.8/+-12.8/+-3.2 m, and the miss decomposition of the splat
+   and raymarch frames (summing to H * W).
 4. Times each kernel four ways: the wrapper's time (CUDA events around
    back-to-back calls), the device time (the summed durations of the device
    operations of one call, from a ``torch.profiler`` trace), its plain
@@ -76,7 +88,9 @@
    called by nothing in the port), beside its bound from
    ``probes/bounds.py``; every case of the integrate, its chain and the
    z-buffer (``probes/cases.py``); an empty kernel launch; transfer_fast
-   per frame of every adaption, the stream rates, fused_state() and
+   per frame of every adaption and rolling engine, the march kernel's
+   device time beside its bound with the samples a ray (mean, p99, max)
+   and the cycles a sample they imply, the stream rates, fused_state() and
    export_mesh(), each with the GPU's name and power limit; and profiles
    the frame of every adaption for its device time, device launches and
    idle share. Nothing of the earlier paths was cut to make room: the
@@ -522,31 +536,67 @@ def _march_volume(torch, dev, compact):
 
 
 def _compare_marches(torch, got, ref, what: str) -> float:
-    """Hold the kernel's march against the plain one: hit and label equal
-    on >= 1 - 1e-4 of rays, range within 1e-4 m where both hit. -> the
-    largest range difference there."""
+    """Hold the kernel's march against the plain one on every ray: range,
+    label, remission, endpoints and hit equal bit for bit (the kernel
+    repeats the plain march's float32 arithmetic). -> the largest range
+    difference (0)."""
     r = got[0].numel()
     bad_h = int((got[4] != ref[4]).sum())
     bad_l = int((got[1] != ref[1]).sum())
-    both = got[4] & ref[4]
-    d = (got[0] - ref[0])[both].abs()
+    d = (got[0] - ref[0]).abs()
     worst = float(d.max()) if d.numel() else 0.0
     print(f"{what}: hit mismatches {bad_h}, label mismatches {bad_l} of "
-          f"{r} rays, {int(both.sum())} both hit, max |range diff| "
-          f"{worst:g} m")
-    check(bad_h <= 1e-4 * r and bad_l <= 1e-4 * r,
-          f"{what}: hit/label disagree on more than 1e-4 of rays")
-    check(worst <= 1e-4, f"{what}: range beyond 1e-4 m")
+          f"{r} rays, {int((got[4] & ref[4]).sum())} both hit, max |range "
+          f"diff| {worst:g} m")
+    check(all(torch.equal(a, b) for a, b in zip(got, ref)),
+          f"{what}: the kernel's march differs from raycast_plain")
     return worst
+
+
+def _check_pack_kernel(torch, kernels) -> None:
+    """Phase 1 for the occupancy's packing into bits against
+    ``pack_occupancy_plain``, word for word, on random grids whose cell
+    counts the 4 x 4 x 2 brick does and does not divide (the reference
+    frame's 512 x 512 x 52 among them); the words give back the grid."""
+    from lidar_transfer_tpu_torch.ops import raycast as RC
+    from lidar_transfer_tpu_torch.ops.raycast_cuda import pack_occupancy_cuda
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    shapes = ((512, 512, 52), (64, 64, 24), (63, 62, 33), (5, 7, 3),
+              (1, 1, 1), (129, 3, 97))
+    for cells in shapes:
+        for p in (0.05, 0.5):
+            occ = torch.rand(cells, device=dev, generator=gen) < p
+            got = pack_occupancy_cuda(occ)
+            ref = RC.pack_occupancy_plain(occ)
+            torch.cuda.synchronize()
+            check(torch.equal(got, ref), f"pack {cells}: kernel != plain")
+            check(torch.equal(RC.occupancy_from_words(got, cells), occ),
+                  f"pack {cells}: the words do not give back the grid")
+    print(f"raymarch_pack: {2 * len(shapes)} grids equal to "
+          f"pack_occupancy_plain word for word, up to {shapes[0]} cells")
+    kernels["raymarch_pack"] = dict(
+        route="cuda", source="lidar_transfer_tpu_torch/csrc/raymarch.cu",
+        replaces="lidar_transfer_tpu/ops/raycast.py:234", max_abs_err=0)
 
 
 def _check_raymarch_kernel(torch, kernels) -> None:
     """Phase 1 for the raymarch kernel against ``raycast_plain`` on a
-    synthetic 256x256x96 volume and 32x2048 HDL32 rays: float32 and
-    compact state, a shared origin and (R, 3) origins, the default fine
-    step of 0.5 voxels on the volume's occupancy grid and the engine's 2
-    voxels on the occupancy of points, a max_steps that cuts rays short."""
+    synthetic 256x256x96 volume and 32x2048 HDL32 rays (full width),
+    float32 and compact state, every ray equal: a shared origin, (R, 3)
+    jittered origins and a rolling-shutter sensor's (R, 3) origins
+    (``generate_rays_moving``, 1.5 m forward and 2 degrees of yaw over
+    the frame), the default fine step of 0.5 voxels on the volume's
+    occupancy grid and the engine's 2 voxels on the occupancy of points;
+    max_steps at K - 1, K and K + 1 past the sixth batch boundary of a
+    ray that keeps its step (K = ``raycast_cuda.AHEAD``, the samples
+    walked ahead of their loads; a batch also ends where a sample's
+    occupancy changes the step); rays that start inside negative space (the
+    box's band). Rays that end at t_far after a count of samples K does not
+    divide are counted and must occur."""
     from lidar_transfer_tpu_torch.ops import raycast as RC
+    from lidar_transfer_tpu_torch.ops.raycast_cuda import AHEAD
 
     dev = torch.device("cuda")
     rays = torch.from_numpy(RC.generate_rays(32, 2048, 10.67,
@@ -554,33 +604,60 @@ def _check_raymarch_kernel(torch, kernels) -> None:
     r = rays.shape[0]
     per_ray = torch.from_numpy(np.random.default_rng(3).uniform(
         -0.3, 0.3, (r, 3)).astype(np.float32)).to(dev)
-    worst, n = 0.0, 0
+    yaw = np.deg2rad(2.0)
+    pose = np.eye(4)
+    pose[:2, :2] = [[np.cos(yaw), -np.sin(yaw)], [np.sin(yaw), np.cos(yaw)]]
+    pose[:3, 3] = [1.5, 0.1, 0.0]
+    m_rays, m_orig = (torch.from_numpy(a).to(dev) for a in
+                      RC.generate_rays_moving(32, 2048, 10.67, -30.67, pose))
+    # inside the box's negative band (sdf -0.2 m, tsdf -0.4): the seed
+    # and the first samples are <= 0
+    inside_box = torch.tensor([-4.0, 5.0, -1.3], device=dev)
+    worst, n, mid_batch = 0.0, 0, 0
     for compact in (False, True):
         state, spec = _march_volume(torch, dev, compact)
         pts = (rays * 6.0).contiguous()
-        for origin in (torch.zeros(3, device=dev), per_ray):
-            for fine, occ, steps in (
-                    (0.5, RC.occupancy_grid(state.tsdf), None),
-                    (2.0, RC.occupancy_from_points(
-                        pts, torch.ones(r, dtype=torch.bool, device=dev),
-                        spec.origin, spec, pixel_angle_rad=0.0076), None),
-                    (0.5, RC.occupancy_grid(state.tsdf), 90)):
-                prm = RC.march_params(spec, spec.origin, 4, fine)
-                steps = steps or RC.default_max_steps(spec, fine)
-                args = (state, occ, rays, origin, prm, spec.dims, 4, steps)
-                got = RC.raymarch(*args)
-                ref = RC.raycast_plain(*args)
-                torch.cuda.synchronize()
-                worst = max(worst, _compare_marches(
-                    torch, got, ref, f"raymarch {spec.dims} "
-                    f"{'compact' if compact else 'f32'} origin "
-                    f"{tuple(origin.shape)} fine {fine} max_steps {steps}"))
-                check(float(ref[4].float().mean()) > 0.1,
-                      "raymarch: no share of the rays hits")
-                n += 1
+        grid_occ = RC.occupancy_grid(state.tsdf)
+        pts_occ = RC.occupancy_from_points(
+            pts, torch.ones(r, dtype=torch.bool, device=dev), spec.origin,
+            spec, pixel_angle_rad=0.0076)
+        cases = [(rays, o, fine, occ, steps)
+                 for o in (torch.zeros(3, device=dev), per_ray)
+                 for fine, occ, steps in ((0.5, grid_occ, None),
+                                          (2.0, pts_occ, None),
+                                          (0.5, grid_occ, 90))]
+        cases += [(rays, torch.zeros(3, device=dev), 0.5, grid_occ,
+                   6 * AHEAD + k) for k in (-1, 0, 1)]
+        cases += [(rays, inside_box, 0.5, grid_occ, None),
+                  (m_rays, m_orig, 2.0, pts_occ, None),
+                  (m_rays, m_orig, 0.5, grid_occ, None)]
+        for rs, origin, fine, occ, steps in cases:
+            prm = RC.march_params(spec, spec.origin, 4, fine)
+            steps = steps or RC.default_max_steps(spec, fine)
+            args = (state, occ, rs, origin, prm, spec.dims, 4, steps)
+            got = RC.raymarch(*args)
+            stats = {}
+            ref = RC.raycast_plain(*args, stats=stats)
+            torch.cuda.synchronize()
+            worst = max(worst, _compare_marches(
+                torch, got, ref, f"raymarch {spec.dims} "
+                f"{'compact' if compact else 'f32'} origin "
+                f"{tuple(origin.shape)} fine {fine} max_steps {steps}"))
+            # the loop's samples of a ray that neither hits nor reaches
+            # max_steps end at t_far: inside a batch of a ray that keeps its
+            # step unless K divides them
+            loop = stats["ray_samples"] - 1
+            mid_batch += int((~ref[4] & (loop < steps)
+                              & (loop % AHEAD != 0)).sum())
+            check(float(ref[4].float().mean()) > 0.1,
+                  "raymarch: no share of the rays hits")
+            n += 1
         del state
-    print(f"raymarch: {n} cases equal to raycast_plain, max |range diff| "
-          f"{worst:g} m")
+    check(mid_batch > 0, "raymarch: no ray ended at t_far inside a "
+          "batch")
+    print(f"raymarch: {n} cases equal to raycast_plain on every ray "
+          f"({mid_batch} rays ended at t_far after a count of samples "
+          f"{AHEAD} does not divide)")
     kernels["raymarch"] = dict(
         route="cuda", source="lidar_transfer_tpu_torch/csrc/raymarch.cu",
         replaces="lidar_transfer_tpu/ops/raycast.py:234", max_abs_err=worst)
@@ -896,6 +973,7 @@ def kernel_checks(torch, kernels) -> tuple:
         max_abs_err=worst)
     _check_fusion_kernels(torch, rng, kernels)
     _check_probe_kernels(torch, rng, kernels)
+    _check_pack_kernel(torch, kernels)
     _check_raymarch_kernel(torch, kernels)
     return pix_t, key_t, npix, pred_t, tgt_t, C
 
@@ -979,6 +1057,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         paths["raymarch"] = _raymarch_path(torch, work, kernels, tag,
                                            per_frame)
+        torch.cuda.empty_cache()
+        paths["rolling"] = _rolling_path(torch, work, kernels, tag,
+                                         per_frame)
         torch.cuda.empty_cache()
     paths["probes"] = per_frame["probes"] = _probe_path(torch, kernels, tag)
     _kernel_cases(torch, kernels, tag)
@@ -1793,7 +1874,8 @@ def _raymarch_path(torch, work, kernels, tag, per_frame):
     print(f"raymarch path: 6 frames and a stream of 4 in "
           f"{time.perf_counter() - t:.2f} s (the geometry table and first "
           f"allocation included); launches {counts}")
-    for k in ("zbuffer", "tsdf_integrate", "tsdf_geometry", "raymarch"):
+    for k in ("zbuffer", "tsdf_integrate", "tsdf_geometry", "raymarch",
+              "raymarch_pack"):
         check(counts[k] > 0, f"kernel {k} never launched on the raymarch "
               "path")
     before = _build.launch_counts()
@@ -1830,23 +1912,7 @@ def _raymarch_path(torch, work, kernels, tag, per_frame):
     err = _compare_marches(torch, got, ref, f"raymarch kernel vs plain, "
                            f"the frame's {spec.dims} compact volume and "
                            f"{eng.rays.shape[0]} rays")
-    # what the march's data needs, from a second, instrumented plain march
-    stats = {}
-    RC.raycast_plain(*args, stats=stats)
-    rb = bounds.raymarch(eng.rays.shape[0], origin.reshape(-1, 3).shape[0],
-                         stats["steps"], stats["hits"],
-                         sum(stats["sectors"].values()))
-    d_ms, ops, _ = device_ms(lambda: RC.raymarch(*args), 3)
-    k = kernels["raymarch"]
-    k.update(ms=cuda_ms(lambda: RC.raymarch(*args), 10), device_ms=d_ms,
-             plain_ms=plain_ms, bound_ms=rb.ms, bound_by=rb.by,
-             max_abs_err=max(k["max_abs_err"], err))
-    print(f"raymarch kernel: device "
-          + ("not measured" if d_ms is None else f"{d_ms:.4f} ms in {ops} "
-             "operation(s)") + f", wrapper {k['ms']:.4f} ms, plain "
-          f"{plain_ms:.1f} ms; the march read {stats} (samples a ray "
-          f"{stats['steps'] / eng.rays.shape[0]:.1f}); bound {rb.ms:.4f} ms "
-          f"by {rb.by} ({rb.bytes} bytes) {tag}")
+    _time_march(torch, kernels, args, plain_ms, err, tag)
     del ref, got
 
     # --------------------------------- 3. the frame's outputs, checked
@@ -1894,6 +1960,229 @@ def _raymarch_path(torch, work, kernels, tag, per_frame):
           f"transfer_stream 4 frames {stream_ms:.3f} ms; hit rate "
           f"{hit:.4f} {tag}")
     _profile_frames(torch, eng, wins, frame_ms, tag)
+    return counts
+
+
+def _march_split(torch, args):
+    """Device ms of one ``RC.raymarch`` call, split into the march kernel's
+    and the packing's, from a profiler trace; (None, None) when no trace
+    was whole."""
+    from lidar_transfer_tpu_torch.ops import raycast as RC
+    from lidar_transfer_tpu_torch.probes.timing import device_split
+
+    split = device_split(lambda: RC.raymarch(*args), 3)
+    if not split:
+        return None, None
+    return (sum(v for k, v in split.items() if "raymarch_kernel" in k),
+            sum(v for k, v in split.items() if "pack_kernel" in k))
+
+
+def _time_march(torch, kernels, args, plain_ms, err, tag):
+    """Row B and its packing on a full-size march ``args``: the kernels'
+    wrapper and device ms beside their bounds (``probes/bounds.py``, from
+    an instrumented plain march: the distinct sectors its data needs), the
+    plain versions' ms, the samples a ray (mean, p99, max) and the cycles
+    a sample that the device time and the longest ray imply at the card's
+    highest SM clock."""
+    from lidar_transfer_tpu_torch.ops import raycast as RC
+    from lidar_transfer_tpu_torch.ops.raycast_cuda import pack_occupancy_cuda
+    from lidar_transfer_tpu_torch.probes import bounds
+    from lidar_transfer_tpu_torch.probes.timing import max_sm_clock_mhz
+
+    rays, origin, occ = args[2], args[3], args[1]
+    R = rays.shape[0]
+    stats = {}
+    RC.raycast_plain(*args, stats=stats)
+    rb = bounds.raymarch(R, origin.reshape(-1, 3).shape[0], stats["steps"],
+                         stats["hits"], sum(stats["sectors"].values()))
+    march_ms, pack_ms = _march_split(torch, args)
+    clock = max_sm_clock_mhz()
+    k = kernels["raymarch"]
+    k.update(ms=cuda_ms(lambda: RC.raymarch(*args), 10), device_ms=march_ms,
+             plain_ms=plain_ms, bound_ms=rb.ms, bound_by=rb.by,
+             max_abs_err=max(k["max_abs_err"], err))
+    pb = bounds.pack_occupancy(occ.shape)
+    p = kernels["raymarch_pack"]
+    p.update(ms=cuda_ms(lambda: pack_occupancy_cuda(occ), 20),
+             device_ms=pack_ms,
+             plain_ms=cuda_ms(lambda: RC.pack_occupancy_plain(occ), 5),
+             bound_ms=pb.ms, bound_by=pb.by)
+    mean = stats["steps"] / R
+    cycles = (None if march_ms is None else
+              march_ms * 1e-3 * clock * 1e6 / stats["samples_max"])
+    print(f"raymarch kernel: device "
+          + ("not measured" if march_ms is None else f"{march_ms:.4f} ms")
+          + f" (bound {rb.ms:.4f} ms by {rb.by}, {rb.bytes} bytes, share "
+          + ("-" if march_ms is None else f"{rb.ms / march_ms:.3f}")
+          + f"), packing {pack_ms} ms (bound {pb.ms:.4f} ms), wrapper "
+          f"{k['ms']:.4f} ms for both, plain {plain_ms:.1f} ms; samples a "
+          f"ray mean {mean:.1f}, p99 {stats['samples_p99']}, max "
+          f"{stats['samples_max']}; "
+          + ("" if cycles is None else f"{cycles:.0f} cycles a sample of "
+             f"the longest ray at {clock:.0f} MHz; ")
+          + f"the march read {stats['inside']} samples inside the box, "
+          f"{stats['occupied']} occupied, {stats['hits']} hits, sectors "
+          f"{stats['sectors']} {tag}")
+
+
+def _rolling_path(torch, work, kernels, tag, per_frame):
+    """Rolling shutter at the reference point on the dataset ``work/kitti``
+    (HDL64 -> HDL32, 2048x2048x208 compact, fixed bounds), frame 0 re-cast
+    over the dataset's next pose by ``resynthesize_rolling_shutter``'s
+    three engines: "auto" after the splat path's ``transfer_fast`` (the
+    winners re-projected), "auto" on the raymarch engine's materialised
+    volume (its band samples re-projected), "raymarch" (the moving rays
+    marched with one origin a ray: row B). Checks the raymarch engine's
+    march equal to ``raycast_plain`` on every ray, the splat engine with
+    the identity pose against its static frame, and every engine's frame
+    against the port's CPU run at +-12.8/+-12.8/+-3.2 m; times each
+    engine. Returns the launch counts of the path."""
+    from lidar_transfer_tpu_torch import _build
+    from lidar_transfer_tpu_torch.config import HDL64, SensorSpec
+    from lidar_transfer_tpu_torch.config import TransferConfig
+    from lidar_transfer_tpu_torch.ops import raycast as RC
+    from lidar_transfer_tpu_torch.pipeline import deform as TD
+    from lidar_transfer_tpu_torch.pipeline.multiscan import load_window
+
+    dev = torch.device("cuda")
+    cfg, _ = _config(work, "rolling")
+    hdl32 = SensorSpec.from_yaml(HDL32_PATH)
+    seq, cap = _sequence(work)
+    pose = np.linalg.inv(seq.poses[0]) @ seq.poses[1]
+    kw = dict(fixed_bounds=True, compact_volume=True)
+    w0 = load_window(seq, cfg, 0, cap, dev)
+
+    def engines(c, device):
+        return (TD.TransferEngine(HDL64, hdl32, c, device=device, **kw),
+                TD.TransferEngine(HDL64, hdl32, c, device=device,
+                                  synthesis="raymarch", **kw))
+
+    def recast(splat, march, w, p):
+        """-> {engine: rolling frame} of window ``w`` over pose ``p``."""
+        splat.transfer_fast(w)
+        march.transfer_fast(w)
+        return {"splat": splat.resynthesize_rolling_shutter(p),
+                "volume": march.resynthesize_rolling_shutter(p),
+                "raymarch": march.resynthesize_rolling_shutter(
+                    p, engine="raymarch")}
+
+    # ------------------------------------------- 2. the path, as a user
+    splat, march = engines(cfg, dev)
+    _build.reset_launch_counts()
+    t = time.perf_counter()
+    frames = recast(splat, march, w0, pose)
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    print(f"rolling path: frame 0 transferred and re-cast by the three "
+          f"engines in {time.perf_counter() - t:.2f} s (first allocation "
+          f"and geometry tables included); pose over the frame "
+          f"{np.round(pose[:3, 3], 4).tolist()} m; launches {counts}")
+    for k in ("zbuffer", "tsdf_integrate", "raymarch", "raymarch_pack"):
+        check(counts[k] > 0, f"kernel {k} never launched on the rolling "
+              "path")
+    for name, vs in frames.items():
+        check(vs.adaption == "mergemesh-rolling"
+              and float(vs.mask.float().mean()) > 0.3,
+              f"rolling {name}: not a rolling frame, or mostly empty")
+    before = _build.launch_counts()
+    march.resynthesize_rolling_shutter(pose, engine="raymarch")
+    per_frame["rolling.raymarch"] = _launches_since(before)
+
+    # ------------------------- 3. the engine's march against the plain
+    t32 = hdl32
+    rays, origins = (torch.from_numpy(a).to(dev) for a in
+                     RC.generate_rays_moving(t32.H, t32.W, t32.fov_up,
+                                             t32.fov_down, pose))
+    spec = march.vol_spec
+    vol_origin = march._last_origin
+    args = (march.fused_state(), march._rolling_occupancy(vol_origin), rays,
+            origins, RC.march_params(spec, vol_origin, 4, 2.0), spec.dims,
+            4, RC.default_max_steps(spec, 2.0))
+    got = RC.raymarch(*args)
+    vs = frames["raymarch"]
+    check(torch.equal(got[0].reshape(vs.range.shape), vs.range)
+          and torch.equal(got[4].reshape(vs.mask.shape), vs.mask),
+          "rolling: the kernel's march != the raymarch engine's frame")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    ref = RC.raycast_plain(*args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t) * 1e3
+    _compare_marches(torch, got, ref, f"rolling raymarch kernel vs plain, "
+                     f"{spec.dims} compact, {rays.shape[0]} rays with (R, 3) "
+                     f"origins")
+    stats = {}
+    RC.raycast_plain(*args, stats=stats)
+    march_ms, pack_ms = _march_split(torch, args)
+    print(f"rolling march: device {march_ms} ms (packing {pack_ms} ms), "
+          f"plain {plain_ms:.1f} ms; samples a ray mean "
+          f"{stats['steps'] / rays.shape[0]:.1f}, p99 "
+          f"{stats['samples_p99']}, max {stats['samples_max']}, hits "
+          f"{stats['hits']} {tag}")
+    del ref, got, args
+
+    # identity pose: the splat engine's rolling frame is its static frame
+    static = splat.transfer_fast(w0)
+    ident = splat.resynthesize_rolling_shutter(np.eye(4))
+    same = float((ident.mask == static.mask).float().mean())
+    both = ident.mask & static.mask
+    d = (ident.range - static.range)[both].abs()
+    print(f"rolling splat, identity pose, against the static frame: mask "
+          f"equal on {same:.6f}, max |range diff| {float(d.max()):.2e} m, "
+          f"labels equal on "
+          f"{float((ident.label == static.label)[both].float().mean()):.6f}"
+          f" of {int(both.sum())} pixels both hit")
+    check(same >= 0.97 and float(d.max()) <= 1e-3
+          and torch.equal(ident.label[both], static.label[both]),
+          "rolling splat with the identity pose != the static frame")
+    for name, vs in frames.items():
+        ms_, ss = vs.mask, static.mask
+        print(f"rolling {name}: hit rate {float(ms_.float().mean()):.4f} "
+              f"(static {float(ss.float().mean()):.4f}); range against "
+              f"the static frame median "
+              f"{float((vs.range - static.range)[ms_ & ss].abs().median()):.4f}"
+              " m")
+
+    # card against the port's CPU run at reduced bounds
+    small = TransferConfig(voxel_size=0.05, voxel_bounds=(
+        (-12.8, 12.8), (-12.8, 12.8), (-3.2, 3.2)))
+    card = recast(*engines(small, dev), load_window(seq, small, 0, cap, dev),
+                  pose)
+    t = time.perf_counter()
+    cpu = recast(*engines(small, "cpu"),
+                 load_window(seq, small, 0, cap, "cpu"), pose)
+    print(f"rolling +-12.8/+-12.8/+-3.2 m on the CPU: "
+          f"{time.perf_counter() - t:.1f} s")
+    for name in frames:
+        _card_vs_cpu(card[name], cpu[name], f"rolling {name} +-12.8 m "
+                     "(frame 0)")
+
+    # ------------------------------------------------------ 4. timing
+    wins = [load_window(seq, cfg, i, cap, dev) for i in range(5)]
+    poses = [np.linalg.inv(seq.poses[i]) @ seq.poses[i + 1]
+             for i in range(5)]
+    for name, eng, e in (("splat", splat, "auto"), ("volume", march, "auto"),
+                         ("raymarch", march, "raymarch")):
+        def frame(eng=eng, e=e):
+            for w, p in zip(wins, poses):
+                eng.transfer_fast(w)
+                eng.resynthesize_rolling_shutter(p, engine=e)
+
+        frame_ms = cuda_ms(frame, 2) / len(wins)
+        eng.transfer_fast(wins[0])
+        recast_fn = lambda eng=eng, e=e: (  # noqa: E731
+            eng.resynthesize_rolling_shutter(poses[0], engine=e))
+        recast_ms = cuda_ms(recast_fn, 5)
+        d_ms, ops, _ = device_ms(recast_fn, 3)
+        print(f"rolling {name}: transfer_fast + re-cast {frame_ms:.3f} "
+              f"ms/frame ({1e3 / frame_ms:.1f} scans/s); the re-cast "
+              f"{recast_ms:.3f} ms, device "
+              + ("not measured" if d_ms is None else
+                 f"{d_ms:.4f} ms in {ops} operations")
+              + f", idle share "
+              + ("-" if d_ms is None else f"{1 - d_ms / recast_ms:.3f}")
+              + f" {tag}")
+    del splat, march
     return counts
 
 

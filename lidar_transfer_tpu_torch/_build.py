@@ -58,6 +58,7 @@ SIGNATURES = {
                         _I, _I, _I, _I, _I, _I, _L, _I, _F, _F, _F, _P),
     "lt_probe_write": (_P, _P, _P, _I, _I, _I, _I,
                        _L, _L, _L, _L, _L, _I, _I, _I, _L, _I, _P),
+    "lt_occupancy_bits": (_P, _I, _I, _I, _P, _P),
     "lt_raymarch": (_P, _P, _P, _P, _P, _P,
                     _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                     _F, _F, _F, _F, _F, _F, _F, _F, _F, _F,
@@ -69,7 +70,7 @@ SIGNATURES = {
 _launches = {"zbuffer": 0, "confusion": 0, "tsdf_integrate": 0,
              "tsdf_integrate_chain": 0, "tsdf_geometry": 0,
              "probe_parts": 0, "probe_ablate": 0, "probe_write": 0,
-             "raymarch": 0}
+             "raymarch": 0, "raymarch_pack": 0}
 _lib: ctypes.CDLL | None = None
 _lock = threading.Lock()
 

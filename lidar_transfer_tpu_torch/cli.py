@@ -8,14 +8,19 @@ denser than the source or not:
   python -m lidar_transfer_tpu_torch.cli -d DATASET [-c CFG.yaml] [-s SEQ]
       [-t TARGET.yaml] [-o OFFSET] [-p OUT] [-b] [-w] [--one_scan]
       [--frames N] [--fixed-bounds] [--metrics-json F] [--stream N]
-      [--ply DIR] [--device cuda|cpu]
+      [--ply DIR] [--rolling-shutter] [--device cuda|cpu]
 
 It prints the same "IoU:", "Acc:", "MSE: " and "Took: ...s" lines (the
 metric lines when source and target image dims agree) and writes the
 per-frame metrics to --metrics-json. ``--ply DIR`` writes each frame's
 fused volume as a PLY mesh coloured by label (``DIR/<index>.ply``, mesh
 and mergemesh only) and records its triangle count; it needs the
-per-frame path, so it turns ``--stream`` off. Per frame it runs
+per-frame path, so it turns ``--stream`` off. ``--rolling-shutter``
+re-casts each mesh or mergemesh frame with the rays of a sensor that moves
+while it spins, by the next scan's pose
+(``TransferEngine.resynthesize_rolling_shutter``; the last scan of the
+sequence, which has no next pose, stays static); it needs the per-frame
+path too. Per frame it runs
 ``TransferEngine.transfer_fast``, which for cp is ``transfer``, cp's
 exact-identity path. It runs on the card unless
 ``--device cpu`` is given; without a CUDA device it refuses to start.
@@ -79,6 +84,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ply", type=str, default=None, metavar="DIR",
                    help="Write each frame's fused volume as a PLY mesh "
                         "coloured by label into DIR (turns --stream off).")
+    p.add_argument("--rolling-shutter", action="store_true",
+                   help="Model ego motion within each frame: target rays "
+                        "originate at the per-column interpolated sensor "
+                        "pose (uses the next scan's pose; turns --stream "
+                        "off).")
     p.add_argument("--device", type=str, default="cuda",
                    help="Torch device (default cuda; cpu only when asked "
                         "for).")
@@ -111,8 +121,9 @@ def main(argv=None) -> int:
         return 2
     if args.stream < 0:
         raise SystemExit(f"--stream must be >= 0, got {args.stream}")
-    if args.stream and args.ply:
-        print("--stream disabled: --ply needs the per-frame path")
+    if args.stream and (args.ply or args.rolling_shutter):
+        print("--stream disabled: --rolling-shutter/--ply need the "
+              "per-frame path")
         args.stream = 0
 
     cfg = (TransferConfig.from_yaml(args.config) if args.config
@@ -179,6 +190,10 @@ def main(argv=None) -> int:
                 t0 = time.time()
                 with timer.span("transfer", 1):
                     vs = eng.transfer_fast(window)
+                    if (args.rolling_shutter and i + 1 < len(seq)
+                            and cfg.adaption in ("mesh", "mergemesh")):
+                        vs = eng.resynthesize_rolling_shutter(
+                            np.linalg.inv(seq.poses[i]) @ seq.poses[i + 1])
                     sync()
                 yield i, window, vs, timer, t0
             return
@@ -212,7 +227,7 @@ def main(argv=None) -> int:
     try:
         for n_done, (i, window, vs, timer, t0) in enumerate(
                 frame_results(), start=1):
-            frame_metrics = {"index": i}
+            frame_metrics = {"index": i, "adaption": vs.adaption}
             if same_dims:
                 m = _source_metrics(window, vs, source, eng)
                 iou, present = m["iou_per_class"], m["present"]

@@ -8,10 +8,12 @@ it takes fine steps, stops at the first +/- crossing of the TSDF sampled
 at the floor voxel, and refines the hit by bisection on the trilinear
 field. The JAX package marches all rays in lockstep in one
 ``lax.while_loop``; the port marches one ray per thread in a hand-written
-kernel (``csrc/raymarch.cu``, through :func:`raymarch`), and
-:func:`raycast_plain` is the same march on tensors, a loop of at most
+kernel (``csrc/raymarch.cu``, through :func:`raymarch`), which reads the
+occupancy packed into bits (:func:`pack_occupancy_plain` is the layout),
+and :func:`raycast_plain` is the same march on tensors, a loop of at most
 ``max_steps`` steps that leaves as soon as every ray is done: what a CPU
-tensor runs, and the kernel's oracle on the card.
+tensor runs, and the kernel's oracle on the card. A ray may start at its
+own origin: :func:`generate_rays_moving` gives a rolling-shutter sensor's.
 
 Every float is float32, in the JAX function's order; the divisions by the
 voxel size are true divisions on both devices (a 0-dim divisor: PyTorch
@@ -28,7 +30,10 @@ import torch
 import torch.nn.functional as F
 
 from lidar_transfer_tpu_torch.ops.raycast_cuda import (MarchParams,
-                                                       raymarch_cuda)
+                                                       pack_occupancy_cuda,
+                                                       raymarch_cuda,
+                                                       words_shape)
+from lidar_transfer_tpu_torch.ops.transforms import interpolate_pose
 from lidar_transfer_tpu_torch.ops.tsdf import TSDFState, VolumeSpec
 
 #: refinement: bisection steps on the trilinear field, and the bracket
@@ -62,6 +67,29 @@ def generate_rays(H: int, W: int, fov_up_deg: float, fov_down_deg: float,
     dirs[:, :, 1] = np.sin(colat)[:, None] * np.sin(-yaw)[None, :]
     dirs[:, :, 2] = np.cos(colat)[:, None]
     return dirs.reshape(-1, 3).astype(np.float32)
+
+
+def generate_rays_moving(H: int, W: int, fov_up_deg: float,
+                         fov_down_deg: float, pose_next: np.ndarray,
+                         beam_angles=None, spin_fraction: float = 1.0
+                         ) -> tuple[np.ndarray, np.ndarray]:
+    """Rolling-shutter rays: a spinning sensor fires image column w at the
+    fraction w / W of the frame (times ``spin_fraction``) while it moves by
+    ``pose_next``, the rigid transform from this scan's sensor frame to the
+    next scan's (inv(pose[i]) @ pose[i+1]). Column w's rays are
+    :func:`generate_rays`' rotated by the pose interpolated at its firing
+    fraction (``transforms.interpolate_pose``), and its origin is that
+    pose's translation. -> (rays (H*W, 3) f32 unit directions, origins
+    (H*W, 3) f32), both for :func:`raycast_tsdf`."""
+    base = generate_rays(H, W, fov_up_deg, fov_down_deg,
+                         beam_angles=beam_angles).reshape(H, W, 3)
+    t = np.linspace(0.0, spin_fraction, W, endpoint=False)
+    poses = interpolate_pose(np.eye(4), np.asarray(pose_next, np.float64),
+                             t)                                # (W,4,4)
+    dirs = np.einsum("wij,hwj->hwi", poses[:, :3, :3], base)
+    origins = np.broadcast_to(poses[:, :3, 3], (H, W, 3))
+    return (np.ascontiguousarray(dirs.reshape(-1, 3), dtype=np.float32),
+            np.ascontiguousarray(origins.reshape(-1, 3), dtype=np.float32))
 
 
 class RaycastResult(NamedTuple):
@@ -159,6 +187,41 @@ def occupancy_from_points(points: torch.Tensor, valid: torch.Tensor,
     return _dilate(occ[:n_cells].reshape(c), dilate_cells)
 
 
+def pack_occupancy_plain(occ: torch.Tensor) -> torch.Tensor:
+    """The occupancy as the march kernel reads it: the (cx, cy, cz) bool
+    grid in (wx, wy, wz) int32 words (``raycast_cuda.words_shape``), a
+    word a brick of 4 x 4 x 2 cells; cell (x, y, z) is bit
+    ((x % 4) * 4 + y % 4) * 2 + z % 2 of word (x // 4, y // 4, z // 2),
+    and cells past the grid are 0."""
+    cx, cy, cz = occ.shape
+    wx, wy, wz = words_shape(occ.shape)
+    pad = F.pad(occ, (0, 2 * wz - cz, 0, 4 * wy - cy, 0, 4 * wx - cx))
+    bits = pad.reshape(wx, 4, wy, 4, wz, 2).permute(0, 2, 4, 1, 3, 5)
+    weight = torch.pow(2, torch.arange(32, dtype=torch.int64,
+                                       device=occ.device))
+    w = (bits.reshape(wx, wy, wz, 32).to(torch.int64) * weight).sum(-1)
+    return torch.where(w >= 2**31, w - 2**32, w).to(torch.int32)
+
+
+def occupancy_from_words(words: torch.Tensor, cells) -> torch.Tensor:
+    """The (cx, cy, cz) bool grid that :func:`pack_occupancy_plain` packed
+    into ``words``."""
+    wx, wy, wz = words.shape
+    shift = torch.arange(32, dtype=torch.int64, device=words.device)
+    bits = ((words.to(torch.int64) & 0xFFFFFFFF)[..., None] >> shift) & 1
+    grid = bits.reshape(wx, wy, wz, 4, 4, 2).permute(0, 3, 1, 4, 2, 5)
+    cx, cy, cz = cells
+    return grid.reshape(4 * wx, 4 * wy, 2 * wz)[:cx, :cy, :cz].bool()
+
+
+def pack_occupancy(occ: torch.Tensor) -> torch.Tensor:
+    """:func:`pack_occupancy_plain` for a CPU tensor, the packing kernel
+    (``raycast_cuda.pack_occupancy_cuda``) for a CUDA tensor."""
+    if occ.device.type == "cpu":
+        return pack_occupancy_plain(occ)
+    return pack_occupancy_cuda(occ)
+
+
 def box_exit_t(origin: torch.Tensor, dirs: torch.Tensor, lo, hi):
     """Per-ray slab test of the volume's box: (t_entry, t_exit);
     ``lo``/``hi`` (3,) float32 tensors."""
@@ -199,10 +262,13 @@ def raycast_plain(state: TSDFState, occ: torch.Tensor, rays: torch.Tensor,
     endpoints (R, 3), hit), each per ray. ``stats``, where given, gets
     what the march's data needs: the samples (``steps``, the seed sample
     included), those inside the box (occupancy reads), inside an occupied
-    block (tsdf reads), the hits, and ``sectors``, the distinct
+    block (tsdf reads), the hits, ``sectors``, the distinct
     :data:`SECTOR`-byte sectors of each array that these reads, a hit's
     refinement corners and its label and remission touch (each counted
-    once, however often it is read)."""
+    once, however often it is read), and each ray's samples
+    (``ray_samples``, (R,) int64, summing to ``steps``; their
+    ``samples_max`` and ``samples_p99``: the kernel, a thread a ray, lasts
+    as long as its longest ray)."""
     X, Y, Z = dims
     R = rays.shape[0]
     dev = rays.device
@@ -216,6 +282,7 @@ def raycast_plain(state: TSDFState, occ: torch.Tensor, rays: torch.Tensor,
     dmax = torch.tensor([X - 1, Y - 1, Z - 1], device=dev)
     dmax2 = dmax - 1
     counts = dict(steps=0, inside=0, occupied=0)
+    per_ray = torch.zeros(R, dtype=torch.int64, device=dev)
     arrays = dict(occupancy=occ_f, tsdf=tsdf_f, label=label_f,
                   remission=rem_f)
     touched = {} if stats is None else {
@@ -243,6 +310,7 @@ def raycast_plain(state: TSDFState, occ: torch.Tensor, rays: torch.Tensor,
         occ_here = inside & occ_f[cflat]
         val = torch.where(occ_here, tsdf_f[flat].to(torch.float32), 1.0)
         if stats is not None:
+            per_ray.add_(live)
             counts["steps"] += int(live.sum())
             counts["inside"] += int((inside & live).sum())
             counts["occupied"] += int((occ_here & live).sum())
@@ -320,7 +388,10 @@ def raycast_plain(state: TSDFState, occ: torch.Tensor, rays: torch.Tensor,
         touch("label", hit_flat, hit)
         touch("remission", hit_flat, hit)
         stats.update(counts, hits=int(hit.sum()), sectors={
-            k: int(v.sum()) for k, v in touched.items()})
+            k: int(v.sum()) for k, v in touched.items()},
+            ray_samples=per_ray, samples_max=int(per_ray.max()),
+            samples_p99=int(torch.quantile(per_ray.double(), 0.99,
+                                           interpolation="higher")))
     return rng, lbl, rem, ends, hit
 
 

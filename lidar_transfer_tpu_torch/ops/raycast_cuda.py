@@ -1,11 +1,17 @@
-"""Wrapper of the raymarch kernel (``csrc/raymarch.cu``).
+"""Wrappers of the raymarch kernel and its occupancy packing
+(``csrc/raymarch.cu``).
 
 Replaces the march of ``lidar_transfer_tpu/ops/raycast.py::_raycast_impl``
 (an XLA ``while_loop``, not Pallas) on the card: one thread marches one
 ray through the state in its storage dtype (float32, or the compact
 bf16/int16/bf16) and the coarse occupancy, with the float32 scalars of
-:class:`MarchParams`, which ``ops/raycast.raycast_plain`` uses too. A CUDA
-tensor launches the kernel; any other device raises
+:class:`MarchParams`, which ``ops/raycast.raycast_plain`` uses too. The
+thread walks :data:`AHEAD` samples of its ray by the occupancy alone, then
+loads the tsdf of the occupied ones together and tests them in order. The
+bool occupancy is packed into words of 4 x 4 x 2 cells first
+(:func:`pack_occupancy_cuda`, the layout of
+``ops/raycast.pack_occupancy_plain``), a launch of its own in every march.
+A CUDA tensor launches the kernels; any other device raises
 (``ops/raycast.raymarch`` sends a CPU tensor to the plain version).
 """
 
@@ -16,6 +22,11 @@ from typing import NamedTuple
 import torch
 
 from lidar_transfer_tpu_torch import _build
+
+
+#: samples a thread walks ahead of their tsdf loads (``kAhead`` in
+#: ``csrc/raymarch.cu``)
+AHEAD = 16
 
 
 class MarchParams(NamedTuple):
@@ -31,16 +42,41 @@ class MarchParams(NamedTuple):
     margin: float
 
 
+def words_shape(cells) -> tuple[int, int, int]:
+    """The packed occupancy's (wx, wy, wz) words of 4 x 4 x 2 cells for a
+    grid of ``cells``."""
+    cx, cy, cz = cells
+    return -(-cx // 4), -(-cy // 4), -(-cz // 2)
+
+
+def pack_occupancy_cuda(occ: torch.Tensor) -> torch.Tensor:
+    """Launch the packing: the contiguous (cx, cy, cz) bool grid ``occ``
+    on the card -> (wx, wy, wz) int32 words (:func:`words_shape`)."""
+    if occ.device.type != "cuda":
+        raise ValueError(f"pack_occupancy_cuda: occ on {occ.device}")
+    if (occ.dtype != torch.bool or occ.dim() != 3
+            or not occ.is_contiguous() or occ.numel() >= 2**31):
+        raise ValueError("pack_occupancy_cuda: occ must be a contiguous "
+                         "3-D bool tensor of fewer than 2^31 cells")
+    words = torch.empty(words_shape(occ.shape), dtype=torch.int32,
+                        device=occ.device)
+    _build.launch("raymarch_pack", "lt_occupancy_bits", occ.data_ptr(),
+                  *occ.shape, words.data_ptr(),
+                  _build.stream_handle(occ.device))
+    return words
+
+
 def raymarch_cuda(state, occ: torch.Tensor, rays: torch.Tensor,
                   origin: torch.Tensor, prm: MarchParams, dims, block: int,
                   max_steps: int):
-    """Launch the kernel: ``state`` a TSDF state (tsdf, label and rem
-    read), ``occ`` the bool occupancy of ``block``³ cells, ``rays`` (R, 3),
-    ``origin`` (3,) or (R, 3). -> (range, label i32, remission, endpoints
-    (R, 3), hit), each per ray."""
+    """Launch the packing of ``occ`` and the march: ``state`` a TSDF state
+    (tsdf, label and rem read), ``occ`` the bool occupancy of ``block``³
+    cells, ``rays`` (R, 3), ``origin`` (3,) or (R, 3). -> (range, label
+    i32, remission, endpoints (R, 3), hit), each per ray."""
     compact = _check(state, occ, rays, origin, dims, block)
     R = rays.shape[0]
     dev = rays.device
+    words = pack_occupancy_cuda(occ)
     out = (torch.empty(R, dtype=torch.float32, device=dev),
            torch.empty(R, dtype=torch.int32, device=dev),
            torch.empty(R, dtype=torch.float32, device=dev),
@@ -48,7 +84,7 @@ def raymarch_cuda(state, occ: torch.Tensor, rays: torch.Tensor,
            torch.empty(R, dtype=torch.bool, device=dev))
     _build.launch(
         "raymarch", "lt_raymarch", state.tsdf.data_ptr(),
-        state.label.data_ptr(), state.rem.data_ptr(), occ.data_ptr(),
+        state.label.data_ptr(), state.rem.data_ptr(), words.data_ptr(),
         rays.data_ptr(), origin.data_ptr(), int(compact), R,
         3 if origin.dim() == 2 else 0, *dims, *occ.shape, block, max_steps,
         *prm.lo, *prm.hi, prm.vox, prm.dt_fine, prm.dt_coarse, prm.margin,
@@ -86,7 +122,8 @@ def _check(state, occ, rays, origin, dims, block) -> bool:
             or tuple(origin.shape) not in ((3,), (rays.shape[0], 3))):
         raise ValueError("raymarch_cuda: origin must be a contiguous (3,) "
                          "or (R, 3) float32 tensor on the rays' device")
-    if min(dims) < 2 or block < 1 or rays.shape[0] >= 2**31:
+    if (min(dims) < 2 or block < 1 or rays.shape[0] >= 2**31
+            or dims[0] * dims[1] * dims[2] >= 2**32):
         raise ValueError(f"raymarch_cuda: dims {tuple(dims)}, block "
                          f"{block} or R out of range")
     return compact

@@ -37,6 +37,11 @@ mergemesh body, as the JAX engine does by default.
 The march reads the volume, so it is integrated in every frame (never
 deferred), and ``transfer_fast``/``transfer_stream`` take ``transfer``.
 
+``resynthesize_rolling_shutter`` re-casts the last frame with the rays of
+a sensor that moves while it spins: by re-projecting the splat winners or
+the volume's band samples against the per-column origins, or by marching
+the moving rays, one origin a ray, through the fused volume.
+
 Not ported yet (ROADMAP.md, queue 1), and refused with
 ``NotImplementedError`` at construction: catmesh's ``"oracle"`` engine
 (per-category marching and a mesh raycast).
@@ -45,6 +50,7 @@ Not ported yet (ROADMAP.md, queue 1), and refused with
 from __future__ import annotations
 
 import dataclasses
+import math
 import warnings
 from typing import NamedTuple
 
@@ -57,9 +63,12 @@ from lidar_transfer_tpu_torch.ops import raycast as RC
 from lidar_transfer_tpu_torch.ops import tsdf as TS
 from lidar_transfer_tpu_torch.ops.marching import (marching_tetrahedra,
                                                    marching_tetrahedra_cells)
-from lidar_transfer_tpu_torch.ops.splat import splat_synthesize
+from lidar_transfer_tpu_torch.ops.splat import (_band_samples,
+                                                _target_assemble,
+                                                splat_synthesize)
 from lidar_transfer_tpu_torch.ops.surface import extract_surface_cells
-from lidar_transfer_tpu_torch.ops.transforms import transform_points
+from lidar_transfer_tpu_torch.ops.transforms import (interpolate_pose,
+                                                     transform_points)
 from lidar_transfer_tpu_torch.ops.tsdf_cuda import (integrate_chain_cuda,
                                                     integrate_cuda,
                                                     precompute_geometry_cuda)
@@ -336,13 +345,16 @@ class TransferEngine:
         return VirtualScan(range=rng, label=lbl, remission=rem, points=ends,
                            mask=mask, adaption=self.cfg.adaption)
 
-    def _src_pixel_angle(self) -> float:
-        """The largest angle a source pixel spans, the bound of
-        ``occupancy_from_points``' lateral footprint: fov / H for uniform
-        rows, at least the largest gap of a source beam table (cached at
-        construction)."""
+    def _src_pixel_angle(self, fov_up=None, fov_down=None, H=None) -> float:
+        """The largest angle a pixel of the fused source images spans, the
+        bound of ``occupancy_from_points``' lateral footprint: fov / H for
+        uniform rows (the source's by default), at least the largest gap of
+        a source beam table (cached at construction)."""
         s = self.source
-        ang = float(np.deg2rad(abs(s.fov_up - s.fov_down))) / max(s.H, 1)
+        fu = s.fov_up if fov_up is None else fov_up
+        fd = s.fov_down if fov_down is None else fov_down
+        h = s.H if H is None else H
+        ang = float(np.deg2rad(abs(fu - fd))) / max(int(h), 1)
         return max(ang, self._s_beam_gap)
 
     def _raycast(self, state, origin, pts, valid) -> VirtualScan:
@@ -656,6 +668,177 @@ class TransferEngine:
             write_weight=False)
         self._fused_now(state, origin, [(ri, fu, fd)])
         return state
+
+    # ---------------------------------------------------- rolling shutter
+    def _rolling_splat_core(self, pts, rem, lbl, valid, R_table, tau_table):
+        """Rolling shutter on the splat path: pixel (h, w) looks along
+        R_w d from tau_w (``ops/raycast.generate_rays_moving``). The fused
+        image's winners are the surface points themselves, so each winner
+        is re-projected against the moving origins with tsdf 0 and an
+        exact range (no band candidate is needed)."""
+        t = self.target
+        win, _ = P.project_winner_order(
+            pts, valid, H=self.source.H, W=self.source.W,
+            fov_up_deg=t.fov_up, fov_down_deg=t.fov_down,
+            beam_angles=self.s_beam_angles, workspace=self._zbuf)
+        has = win >= 0
+        g = torch.where(has, win, 0).to(torch.int64)
+        p = pts[g]
+        # winners only, label 0 included (an unlabelled surface stays
+        # opaque); the volume cast would hit content inside the configured
+        # box alone
+        lo = torch.tensor(self.vol_spec.origin, dtype=torch.float32,
+                          device=p.device)
+        hi = lo + (torch.tensor(self.vol_spec.dims, dtype=torch.float32,
+                                device=p.device)
+                   * float(np.float32(self.vol_spec.voxel_size)))
+        valid_c = has & ((p >= lo) & (p < hi)).all(dim=1)
+        return self._rolling_reproject_core(p, lbl[g].to(torch.int32),
+                                            rem[g], valid_c, R_table,
+                                            tau_table)
+
+    def _rolling_reproject_core(self, p, c_lbl, c_rem, valid_c, R_table,
+                                tau_table):
+        """The rolling-shutter tail shared by every engine: surface points
+        ``p`` (primary frame) re-projected against the per-column moving
+        origins (two fixed-point iterations on the firing column, since
+        ego motion over a frame moves a point by much less than a column
+        an iteration), then z-buffered into the target grid; endpoints go
+        back to the primary frame through their pixel's column pose."""
+        t = self.target
+        W = t.W
+
+        def column_of(pos):
+            yaw = -torch.atan2(pos[:, 1], pos[:, 0])
+            u = 0.5 * (yaw / math.pi + 1.0) * W
+            return torch.clamp(torch.floor(u), 0, W - 1).to(torch.int64)
+
+        w = column_of(p)
+        pos_s = p
+        for _ in range(2):
+            Rw = R_table[w]                               # (N, 3, 3)
+            q = p - tau_table[w]
+            # the sensor-frame position R_w^T q
+            pos_s = (Rw[:, 0, :] * q[:, 0:1] + Rw[:, 1, :] * q[:, 1:2]
+                     + Rw[:, 2, :] * q[:, 2:3])
+            w = column_of(pos_s)
+        rng, lbl, rem, ends_s, mask = _target_assemble(
+            pos_s, torch.zeros_like(c_rem), c_lbl, c_rem, valid_c,
+            t.fov_up, t.fov_down, self.t_beam_angles, H=t.H, W=W,
+            beam_rows=self.t_beam_angles is not None,
+            trunc=float(self.vol_spec.trunc_margin), workspace=self._zbuf)
+        # with tsdf 0 the endpoint is the winner's sensor-frame position;
+        # pixel (h, w) re-enters the primary frame through (R_w, tau_w)
+        ends = (R_table[None, :, :, 0] * ends_s[..., 0:1]
+                + R_table[None, :, :, 1] * ends_s[..., 1:2]
+                + R_table[None, :, :, 2] * ends_s[..., 2:3])
+        ends = torch.where(mask[..., None], ends + tau_table[None], 0.0)
+        return rng, lbl, rem, ends, mask
+
+    def _rolling_volume_core(self, state, vol_origin, R_table, tau_table):
+        """Rolling shutter for engines whose volume is materialised: every
+        fused source ray's first band sample in the volume, moved along its
+        own (static) ray onto the zero crossing, t + tsdf * trunc, which is
+        the surface point the static splat outputs; then the moving-origin
+        tail re-projects it exactly."""
+        dev = self.device
+        vo = torch.as_tensor(np.asarray(vol_origin, np.float32), device=dev)
+        full = torch.tensor(self.vol_spec.dims, dtype=torch.float32,
+                            device=dev)
+        trunc = float(np.float32(self.vol_spec.trunc_margin))
+        parts = []
+        for ri, fu, fd in self._last_sources:
+            back = P.reverse_project(ri, fov_up_deg=fu, fov_down_deg=fd,
+                                     preserve_float=True)
+            pos, tc, tsdf_c, lbl_c, rem_c, found = _band_samples(
+                state.tsdf, state.label, state.rem, ri.range.reshape(-1),
+                back, ri.mask.reshape(-1), vo, full,
+                voxel_size=self.vol_spec.voxel_size, samples_per_ray=8,
+                label_probe=self.band_label_probe)
+            ts = torch.clamp(tc + tsdf_c * trunc, min=0.0)
+            scale = torch.where(tc > 0, ts / torch.clamp(tc, min=1e-6), 0.0)
+            parts.append((pos * scale[:, None], lbl_c, rem_c, found))
+        return self._rolling_reproject_core(
+            *(torch.cat([q[i] for q in parts]) for i in range(4)), R_table,
+            tau_table)
+
+    def _rolling_occupancy(self, vol_origin):
+        """The coarse occupancy of the fused sources' winners, ORed over
+        the sources (O(points): the integrate touches voxels only within
+        the truncation of an image's endpoint)."""
+        occ = None
+        for ri, fu, fd in self._last_sources:
+            back = P.reverse_project(ri, fov_up_deg=fu, fov_down_deg=fd,
+                                     preserve_float=True)
+            o = RC.occupancy_from_points(
+                back, ri.range.reshape(-1) > 0, vol_origin, self.vol_spec,
+                pixel_angle_rad=self._src_pixel_angle(
+                    fu, fd, ri.range.shape[0]))
+            occ = o if occ is None else occ | o
+        return occ
+
+    def resynthesize_rolling_shutter(self, pose_next: np.ndarray,
+                                     frame: int | None = None,
+                                     engine: str = "auto") -> VirtualScan:
+        """Re-cast the last transferred frame with rolling-shutter rays.
+
+        ``pose_next`` is the relative pose over one frame period
+        (inv(pose[i]) @ pose[i+1]); each target column's rays leave the
+        sensor pose interpolated at its firing time
+        (``ops/raycast.generate_rays_moving``). After ``transfer_stream``
+        pass ``frame=i`` (negative counts from the end); omitting it
+        raises.
+
+        ``engine="auto"``: on the splat path with the frame's window kept
+        (``transfer_fast``), the winners are the surface points and are
+        re-projected against the moving origins
+        (``_rolling_splat_core``); an engine whose volume is materialised
+        takes each fused ray's band sample moved onto the surface, then
+        the same re-projection (``_rolling_volume_core``).
+        ``engine="raymarch"`` marches the moving rays, one origin a ray,
+        through ``fused_state()`` (the raymarch kernel on the card), with
+        the occupancy of the fused sources' winners.
+        """
+        if engine not in ("auto", "raymarch"):
+            raise ValueError(f"engine must be 'auto' or 'raymarch': "
+                             f"{engine!r}")
+        if frame is not None:
+            self._select_stream_frame(frame)
+        if (self._stream_windows is not None
+                and self._pending_window is None
+                and self._pending_fusion is None):
+            raise ValueError(
+                "resynthesize_rolling_shutter after transfer_stream is "
+                "ambiguous — pass frame=i to select one of the "
+                f"{self._stream_windows.points.shape[0]} streamed frames")
+        t = self.target
+        poses = interpolate_pose(np.eye(4), np.asarray(pose_next, np.float64),
+                                 np.linspace(0.0, 1.0, t.W, endpoint=False))
+        R_table = self._tensor(poses[:, :3, :3])
+        tau_table = self._tensor(poses[:, :3, 3])
+        w = self._pending_window
+        if engine == "auto" and w is not None and self.synthesis == "splat":
+            out = self._rolling_splat_core(*merge_window(w), R_table,
+                                           tau_table)
+            return VirtualScan(*out, adaption="mergemesh-rolling")
+        state = self.fused_state()
+        vol_origin = (self.vol_spec.origin if self._last_origin is None
+                      else self._last_origin)
+        if engine == "auto":
+            out = self._rolling_volume_core(state, vol_origin, R_table,
+                                            tau_table)
+            return VirtualScan(*out, adaption="mergemesh-rolling")
+        ba = (np.asarray(t.beam_angles) if t.beam_angles is not None
+              else None)
+        rays, origins = RC.generate_rays_moving(
+            t.H, t.W, t.fov_up, t.fov_down, pose_next, beam_angles=ba)
+        res = RC.raycast_tsdf(
+            state, self.vol_spec, self._tensor(rays), self._tensor(origins),
+            t.H, t.W, occ=self._rolling_occupancy(vol_origin), fine_step=2.0,
+            vol_origin=vol_origin)
+        return VirtualScan(range=res.range, label=res.label,
+                           remission=res.remission, points=res.endpoints,
+                           mask=res.hit, adaption="mergemesh-rolling")
 
     #: volumes of at least this many voxels export through the surface
     #: cells (ops/surface.py) instead of fetching the whole state

@@ -152,3 +152,11 @@ def raymarch(rays: int, origin_rows: int, samples: int, hits: int,
     sample included."""
     nbytes = SECTOR * sectors + 12 * (rays + origin_rows) + 25 * rays
     return bound(nbytes, 20 * samples + 40 * REFINE_SAMPLES * hits)
+
+
+def pack_occupancy(cells) -> Bound:
+    """Row B's packing: the (cx, cy, cz) bool occupancy read (1 B a cell),
+    its words of 4 x 4 x 2 cells written (4 B each)."""
+    cx, cy, cz = cells
+    words = -(-cx // 4) * -(-cy // 4) * -(-cz // 2)
+    return bound(cx * cy * cz + 4 * words)

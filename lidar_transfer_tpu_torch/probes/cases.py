@@ -1,7 +1,7 @@
 """Every case of the TSDF integrate, its chain, the geometry table, the
 confusion counts and the z-buffer, timed on the card beside its bound.
 
-    python -m lidar_transfer_tpu_torch.probes.cases [volume|small|frame ...]
+    python -m lidar_transfer_tpu_torch.probes.cases [volume|small|frame|march ...]
                                                     [--only TEXT]
                                                     [--out FILE.json]
 
@@ -27,6 +27,15 @@ padded points):
           variant, ``csrc/confusion.cu``, which was measured and not kept);
   frame   three mergemesh frames (HDL64 to HDL32, ``transfer_fast``): the
           device operations they issue;
+  march   row B, the raymarch kernel, on the reference march (the first
+          synthetic HDL64 scan in the 2048x2048x208 compact volume of
+          ``TransferEngine(synthesis="raymarch")``, 65,536 HDL32 rays from
+          the sensor, fine step 2 voxels) and from a rolling-shutter
+          sensor's per-ray origins over the scene's next pose, and on
+          every other column of the reference rays: the device time of
+          each operation (the march, and the packing of the
+          occupancy into bits), the samples a ray (mean, p99, max) and
+          the cycles a sample at the card's highest SM clock;
   probes  rows 4 to 7 at the probe scripts' 1024x1024x256: the parts
           kernel in the script's rows (each variant with three outputs at
           BX 2, full with one output, full at BX 4 and 8); the ablate
@@ -55,7 +64,7 @@ import json
 import os
 import sys
 
-GROUPS = ("volume", "small", "frame", "probes")
+GROUPS = ("volume", "small", "frame", "probes", "march")
 DIMS = (2048, 2048, 208)
 ODD_DIMS = (2048, 2048, 206)
 SCALAR_DIMS = (2047, 2047, 206)
@@ -104,14 +113,14 @@ def measure(groups=GROUPS, only: str = "") -> list[dict]:
     _build.library()
     rows = []
 
-    def case(name, fn, bound, iters, dev_iters, note=""):
+    def case(name, fn, bound, iters, dev_iters, note="", **extra):
         if only not in name:
             return
         ms = timing.cuda_ms(fn, iters)
         d_ms, ops, names = timing.device_ms(fn, dev_iters)
         rows.append(dict(case=name, ms=ms, device_ms=d_ms, device_ops=ops,
                          ops=names, bytes=bound.bytes, bound_ms=bound.ms,
-                         bound_by=bound.by, note=note, gpu=gpu))
+                         bound_by=bound.by, note=note, gpu=gpu, **extra))
         print(json.dumps(rows[-1]), flush=True)
 
     # three scans of the synthetic scene, each in its own sensor frame
@@ -138,6 +147,8 @@ def measure(groups=GROUPS, only: str = "") -> list[dict]:
         _frame_case(case, scans, dev)
     if "probes" in groups:
         _probe_cases(case, dev)
+    if "march" in groups:
+        _march_cases(case, scans[0], dev, np.linalg.inv(poses[0]) @ poses[1])
     return rows
 
 
@@ -365,6 +376,90 @@ def _probe_cases(case, dev) -> None:
                  lambda: [o.add_(1) for o in outs], b, 20, 3)
         del outs
         torch.cuda.empty_cache()
+
+
+def march_inputs(scan, dev):
+    """Row B's reference march: the first scan of the synthetic HDL64
+    scene (``scan``, padded on the card) integrated by
+    ``TransferEngine(synthesis="raymarch")`` (mergemesh, compact state,
+    fixed bounds +-50/+-50/+-5 m, voxel 0.05 m: 2048x2048x208) and the
+    engine's occupancy of its points; -> (engine, the arguments of
+    ``ops/raycast.raymarch`` for the HDL32 rays from the sensor)."""
+    import torch
+
+    from lidar_transfer_tpu_torch.config import HDL32, HDL64, TransferConfig
+    from lidar_transfer_tpu_torch.ops import raycast as RC
+    from lidar_transfer_tpu_torch.pipeline import deform as TD
+    from lidar_transfer_tpu_torch.pipeline.multiscan import ScanWindow
+
+    cfg = TransferConfig(voxel_size=VOXEL, voxel_bounds=(
+        (-50.0, 50.0), (-50.0, 50.0), (-5.0, 5.0)))
+    eng = TD.TransferEngine(HDL64, HDL32, cfg, fixed_bounds=True,
+                            device=dev, synthesis="raymarch",
+                            compact_volume=True)
+    pts, rem, lbl, valid = scan
+    eng.transfer_fast(ScanWindow(
+        points=pts[None], remissions=rem[None], labels=lbl[None],
+        valid=valid[None], rel_pose=torch.eye(4, device=dev)[None]))
+    spec = eng.vol_spec
+    occ = RC.occupancy_from_points(pts, valid, spec.origin, spec,
+                                   pixel_angle_rad=eng._src_pixel_angle())
+    prm = RC.march_params(spec, spec.origin, 4, 2.0)
+    return eng, (eng.fused_state(), occ, eng.rays,
+                 torch.zeros(3, device=dev), prm, spec.dims, 4,
+                 RC.default_max_steps(spec, 2.0))
+
+
+def _march_cases(case, scan, dev, pose_next) -> None:
+    """Row B on the reference march, from the sensor and (where the tree
+    has ``generate_rays_moving``) from a rolling-shutter sensor's (R, 3)
+    origins over ``pose_next``; each with the device time of each of its
+    operations (``split``: the march kernel, and the occupancy's packing
+    where the kernel reads bits) and the samples a ray of the plain
+    march."""
+    import torch
+
+    from lidar_transfer_tpu_torch.config import HDL32
+    from lidar_transfer_tpu_torch.ops import raycast as RC
+    from lidar_transfer_tpu_torch.probes import bounds, timing
+
+    eng, args = march_inputs(scan, dev)
+    # every other column: half the warps, rays of the same lengths (a
+    # kernel set by its longest rays keeps its time, one set by its total
+    # work halves it)
+    half = args[2].reshape(HDL32.H, HDL32.W, 3)[:, ::2].reshape(-1, 3)
+    runs = [("reference march 65536 HDL32 rays, 2048x2048x208 compact, "
+             "shared origin", args),
+            ("reference march, every other column: 32768 rays",
+             (*args[:2], half.contiguous(), *args[3:]))]
+    if hasattr(RC, "generate_rays_moving"):
+        rays, origins = RC.generate_rays_moving(
+            HDL32.H, HDL32.W, HDL32.fov_up, HDL32.fov_down, pose_next)
+        runs.append((
+            "rolling march 65536 HDL32 rays, 2048x2048x208 compact, (R, 3) "
+            "origins", (args[0], args[1], torch.from_numpy(rays).to(dev),
+                        torch.from_numpy(origins).to(dev), *args[4:])))
+    clock = timing.max_sm_clock_mhz()
+    for name, a in runs:
+        stats = {}
+        RC.raycast_plain(*a, stats=stats)
+        R = a[2].shape[0]
+        rb = bounds.raymarch(R, a[3].reshape(-1, 3).shape[0],
+                             stats["steps"], stats["hits"],
+                             sum(stats["sectors"].values()))
+        samples = dict(mean=stats["steps"] / R, hits=stats["hits"],
+                       occupied=stats["occupied"],
+                       max=stats.get("samples_max"),
+                       p99=stats.get("samples_p99"))
+        split = timing.device_split(lambda: RC.raymarch(*a), 3)
+        march_ms = sum(v for k, v in split.items() if "raymarch" in k)
+        case(name, lambda: RC.raymarch(*a), rb, 20, 3,
+             note=f"samples a ray {samples}", split=split, samples=samples,
+             max_sm_clock_mhz=clock,
+             cycles_a_sample=(march_ms * 1e-3 * clock * 1e6
+                              / samples["max"] if samples["max"] else None))
+    del eng
+    torch.cuda.empty_cache()
 
 
 def main(argv=None) -> int:

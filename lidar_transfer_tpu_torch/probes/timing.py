@@ -17,6 +17,16 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def max_sm_clock_mhz() -> float:
+    """The first card's highest SM clock (MHz), as ``nvidia-smi
+    --query-gpu=clocks.max.sm`` reports it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0])
+
+
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     """Mean ms per call of ``fn`` between CUDA events, after a warm-up."""
     import torch
@@ -88,6 +98,20 @@ def whole_trace(fn, iters: int, warmup: int = 2, attempts: int = 5):
     return []
 
 
+def _retried_trace(fn, iters: int, warmup: int):
+    """:func:`whole_trace`, in up to three rounds (one round in some
+    twenty has been seen to fail where the next succeeds); [] when none
+    gave a whole trace."""
+    import torch
+
+    for _ in range(3):
+        on_dev = whole_trace(fn, iters, warmup)
+        if on_dev:
+            return on_dev
+        torch.cuda.synchronize()
+    return []
+
+
 def device_ms(fn, iters: int, warmup: int = 2):
     """What the card itself spends on one call of ``fn``: the summed
     durations of the device operations of ``iters`` calls
@@ -96,16 +120,9 @@ def device_ms(fn, iters: int, warmup: int = 2):
     it from :func:`cuda_ms` for a call of a few microseconds.
     -> (ms a call, device operations a call, {operation name: count a
     call}); (None, 0, {}) when no trace was whole in three rounds of
-    :func:`whole_trace` (one round in some twenty has been seen to fail
-    where the next succeeds)."""
-    import torch
-
-    for _ in range(3):
-        on_dev = whole_trace(fn, iters, warmup)
-        if on_dev:
-            break
-        torch.cuda.synchronize()
-    else:
+    :func:`whole_trace`."""
+    on_dev = _retried_trace(fn, iters, warmup)
+    if not on_dev:
         return None, 0, {}
     names = {}
     for e in on_dev:
@@ -113,6 +130,15 @@ def device_ms(fn, iters: int, warmup: int = 2):
     total_us = sum(e.time_range.elapsed_us() for e in on_dev)
     return (total_us / 1e3 / iters, len(on_dev) // iters,
             {k: n // iters for k, n in names.items()})
+
+
+def device_split(fn, iters: int, warmup: int = 2) -> dict:
+    """:func:`device_ms` split by operation: {operation name: summed
+    device ms a call}; {} when no trace was whole."""
+    out = {}
+    for e in _retried_trace(fn, iters, warmup):
+        out[e.name] = out.get(e.name, 0.0) + e.time_range.elapsed_us()
+    return {k: us / 1e3 / iters for k, us in out.items()}
 
 
 def bf16_ulp(x):

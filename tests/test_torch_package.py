@@ -119,7 +119,8 @@ def test_cpu_calls_launch_no_kernel(small_spec):
     assert _build.launch_counts() == {
         "zbuffer": 0, "confusion": 0, "tsdf_integrate": 0,
         "tsdf_integrate_chain": 0, "tsdf_geometry": 0, "probe_parts": 0,
-        "probe_ablate": 0, "probe_write": 0, "raymarch": 0}
+        "probe_ablate": 0, "probe_write": 0, "raymarch": 0,
+        "raymarch_pack": 0}
 
 
 def test_extra_nvcc_flags_name_another_library(monkeypatch):

@@ -6,8 +6,10 @@ engine against the JAX package (CPU).
 run on the same numpy volume and rays, made from a seed (a 64x64x32 TSDF of
 a ground plane, a wall and a box; 16x256 rays), in float32 and in compact
 storage, with a shared origin and with (R, 3) origins. The raymarch
-kernel runs on the card only; ``chip_smoke.py`` holds it against
-``raycast_plain`` there.
+kernel and its packing of the occupancy run on the card only;
+``chip_smoke.py`` holds them against ``raycast_plain`` and
+``pack_occupancy_plain`` there, and here the packing's plain version is
+held to the grid it packs and ``raycast_plain``'s counts to its march.
 
 Tolerance: occupancy exact; hit and label equal on >= 99.9 % of rays;
 range within 1e-3 m on rays that both hit (a floor or an ulp of the
@@ -292,6 +294,57 @@ def test_raycast_plain_counts_what_it_reads(volume):
                            for o, d in zip(ORIGIN, DIMS))
 
 
+@pytest.mark.parametrize("max_steps", [None, 60, 1])
+def test_raycast_plain_counts_samples_a_ray(volume, max_steps):
+    """raycast_plain's per-ray sample counts (the seed sample included):
+    they sum to ``steps``, none exceeds max_steps + 1, and their max and
+    p99 are those of the counts."""
+    _, ts = _states(volume, True)
+    spec = TT.VolumeSpec(ORIGIN, VOX, DIMS)
+    rays = torch.from_numpy(TR.generate_rays(H, W, *FOV))
+    prm = TR.march_params(spec, ORIGIN, 4, 0.5)
+    steps = max_steps or TR.default_max_steps(spec, 0.5)
+    stats = {}
+    TR.raycast_plain(ts, TR.occupancy_grid(ts.tsdf), rays, torch.zeros(3),
+                     prm, DIMS, 4, steps, stats)
+    per = stats["ray_samples"]
+    assert per.shape == (H * W,) and int(per.min()) >= 1
+    assert int(per.sum()) == stats["steps"]
+    assert stats["samples_max"] == int(per.max()) <= steps + 1
+    assert stats["samples_p99"] == int(np.quantile(per.numpy(), 0.99,
+                                                   method="higher"))
+    if max_steps == 1:
+        assert stats["samples_max"] == 2
+
+
+@pytest.mark.parametrize("cells", [(16, 16, 8), (5, 7, 3), (9, 6, 33),
+                                   (1, 1, 1), (63, 62, 31), (8, 4, 52)])
+def test_pack_occupancy_gives_the_grid_back(cells):
+    """pack_occupancy_plain (the layout the march kernel reads): (wx, wy,
+    wz) int32 words of 4 x 4 x 2 cells, cell (x, y, z) at bit
+    ((x % 4) * 4 + y % 4) * 2 + z % 2 of word (x // 4, y // 4, z // 2);
+    the words give back the grid for cell counts the brick does not
+    divide (cz not a multiple of 32 or of 2); cells past the grid are 0;
+    a CPU tensor launches nothing."""
+    occ = torch.from_numpy(np.random.default_rng(sum(cells)).random(cells)
+                           < 0.4)
+    _build.reset_launch_counts()
+    words = TR.pack_occupancy(occ)
+    assert _build.launch_counts()["raymarch_pack"] == 0
+    assert words.dtype == torch.int32
+    assert tuple(words.shape) == TRC.words_shape(cells) == tuple(
+        -(-c // b) for c, b in zip(cells, (4, 4, 2)))
+    assert torch.equal(TR.occupancy_from_words(words, cells), occ)
+    w = words.numpy().astype(np.int64) & 0xFFFFFFFF
+    for x, y, z in np.argwhere(np.ones(cells, bool))[::7]:
+        bit = ((x % 4) * 4 + y % 4) * 2 + z % 2
+        assert (w[x // 4, y // 4, z // 2] >> bit) & 1 == occ[x, y, z]
+    full = TR.pack_occupancy(torch.ones(cells, dtype=torch.bool))
+    assert int(TR.occupancy_from_words(full, [4 * s for s in (
+        words.shape[0], words.shape[1])] + [2 * words.shape[2]]).sum()) \
+        == int(np.prod(cells))
+
+
 def test_raymarch_refuses_other_devices(volume):
     """The kernel's wrapper takes CUDA tensors only: a tensor on another
     device raises; so does a state of mixed dtypes."""
@@ -309,6 +362,8 @@ def test_raymarch_refuses_other_devices(volume):
         TRC.raymarch_cuda(ts, torch.zeros((16, 16, 8), dtype=torch.bool),
                           torch.zeros((8, 3)), torch.zeros(3), prm, DIMS, 4,
                           10)
+    with pytest.raises(ValueError, match="occ on cpu"):
+        TRC.pack_occupancy_cuda(torch.zeros((16, 16, 8), dtype=torch.bool))
 
 
 # ------------------------------------------------------------ the engine
