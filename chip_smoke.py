@@ -62,7 +62,15 @@
      winners, the raymarch engine's band samples, the march with one
      origin a ray through its volume);
    - the probes at 1024x1024x256 through ``probes.run`` (the rows of
-     ``python -m lidar_transfer_tpu_torch.probes all``).
+     ``python -m lidar_transfer_tpu_torch.probes all``);
+   - segmentation (``lt-seg``'s path, ``experiments/segmentation.py``) on
+     the same HDL64 dataset: ``train_segmentation`` of darknet53 at
+     64x2048 (batch 2, bf16 compute, float32 parameters, 20 steps, a
+     checkpoint), ``write_predictions`` with and without the kNN cleanup,
+     ``evaluate_semantics`` of each (the z-buffer in every scan's
+     projection, the confusion counts in the evaluation), and
+     ``run_workflow("fake_on_real")`` with darknet21 through the CLI's
+     mergemesh transfer.
    Every kernel of a path must have launched in its run.
 3. Checks the outputs: files written, the stream equal to the per-frame run,
    the card's virtual scans against the port's CPU run of the same frame
@@ -77,7 +85,12 @@
    difference), the rolling splat frame with the identity pose against
    the static frame, each rolling engine's frame against the port's CPU
    run at +-12.8/+-12.8/+-3.2 m, and the miss decomposition of the splat
-   and raymarch frames (summing to H * W).
+   and raymarch frames (summing to H * W); the darknet53 loss falling,
+   the checkpoint loaded back with its logits bit for bit, every
+   prediction file of the scan's length in the mapper's raw ids, finite
+   scores, and one float32 darknet53 forward on the card (TF32 off)
+   against the CPU (argmax agreement >= 99.9 %; bf16 against float32
+   printed).
 4. Times each kernel four ways: the wrapper's time (CUDA events around
    back-to-back calls), the device time (the summed durations of the device
    operations of one call, from a ``torch.profiler`` trace), its plain
@@ -88,7 +101,9 @@
    called by nothing in the port), beside its bound from
    ``probes/bounds.py``; every case of the integrate, its chain and the
    z-buffer (``probes/cases.py``); an empty kernel launch; transfer_fast
-   per frame of every adaption and rolling engine, the march kernel's
+   per frame of every adaption and rolling engine, a darknet53 train
+   step's median ms, peak memory and idle share and an inference's ms,
+   the march kernel's
    device time beside its bound with the samples a ray (mean, p99, max)
    and the cycles a sample they imply, the stream rates, fused_state() and
    export_mesh(), each with the GPU's name and power limit; and profiles
@@ -1060,6 +1075,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         paths["rolling"] = _rolling_path(torch, work, kernels, tag,
                                          per_frame)
+        torch.cuda.empty_cache()
+        paths["segmentation"] = _segmentation_path(torch, work, tag,
+                                                   per_frame)
         torch.cuda.empty_cache()
     paths["probes"] = per_frame["probes"] = _probe_path(torch, kernels, tag)
     _kernel_cases(torch, kernels, tag)
@@ -2183,6 +2201,193 @@ def _rolling_path(torch, work, kernels, tag, per_frame):
               + ("-" if d_ms is None else f"{1 - d_ms / recast_ms:.3f}")
               + f" {tag}")
     del splat, march
+    return counts
+
+
+def _segmentation_path(torch, work, tag, per_frame):
+    """``lt-seg``'s path on the dataset ``work/kitti`` (HDL64, 64x2048):
+    ``train_segmentation`` of darknet53 at full width (batch 2, bf16
+    compute, float32 parameters, 20 steps, a checkpoint), the checkpoint
+    loaded back (logits bit for bit), ``write_predictions`` with and
+    without the kNN cleanup and ``evaluate_semantics`` of each (the
+    z-buffer in every scan's projection, the confusion counts in the
+    evaluation), one float32 forward of the trained weights on the card
+    (TF32 off) against the CPU, and ``run_workflow("fake_on_real")`` with
+    darknet21 through the CLI's mergemesh transfer. Times a train step and
+    an inference at the same shapes. Returns the launch counts of the
+    path."""
+    import dataclasses
+
+    from lidar_transfer_tpu_torch import _build
+    from lidar_transfer_tpu_torch.experiments import segmentation as SG
+    from lidar_transfer_tpu_torch.experiments.workflows import run_workflow
+    from lidar_transfer_tpu_torch.models import RangeNet, RangeNetConfig
+    from lidar_transfer_tpu_torch.models.rangenet import infer, train_step
+    from lidar_transfer_tpu_torch.probes import bounds
+
+    dev = torch.device("cuda")
+    ds = os.path.join(work, "kitti")
+    ckpt = os.path.join(work, "seg.pt")
+    mapper = SG.LabelMapper.from_labels(dict(
+        _config(work, "seg")[0].labels))
+    cfg53 = RangeNetConfig.darknet53(num_classes=mapper.num_classes)
+    steps = 20
+
+    _build.reset_launch_counts()
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        model, mapper, spec = SG.train_segmentation(
+            ds, steps=steps, batch_size=2, model_cfg=cfg53, seed=0,
+            checkpoint_path=ckpt, device=dev)
+        torch.cuda.synchronize()
+    train_s = time.perf_counter() - t
+    print(buf.getvalue(), end="")
+    per_frame["segmentation.train"] = _launches_since(
+        dict.fromkeys(_build.launch_counts(), 0), steps)
+    losses = [float(line.rsplit(" ", 1)[1])
+              for line in buf.getvalue().splitlines()
+              if line.startswith("step ")]
+    print(f"train_segmentation darknet53 {spec.H}x{spec.W}, batch 2, "
+          f"{steps} steps: {train_s:.1f} s wall (first step's cuDNN "
+          f"set-up included), losses {losses} {tag}")
+    check(len(losses) == 3 and all(np.isfinite(losses)),
+          "train_segmentation printed no finite losses")
+    check(losses[-1] < 0.8 * losses[0], "the darknet53 loss did not fall")
+
+    # the checkpoint round trip
+    loaded, mapper2, spec2 = SG.load_checkpoint(ckpt, dev)
+    check(loaded.cfg == cfg53 and mapper2.raw_ids == mapper.raw_ids
+          and spec2 == spec, "checkpoint config, mapper or spec")
+    seq, cap = _sequence(work)
+    before = _build.launch_counts()
+    batch = [SG._frame_tensors(seq, i, spec, cap, mapper, dev)
+             for i in (0, 1)]
+    per_frame["segmentation.frame"] = _launches_since(before, 2)
+    feats = torch.stack([b[0] for b in batch])
+    with torch.no_grad():
+        same = torch.equal(model(feats), loaded(feats))
+    print(f"checkpoint round trip ({os.path.getsize(ckpt) / 2**20:.1f} "
+          f"MiB): logits bit-equal {same}")
+    check(same, "the loaded checkpoint's logits differ")
+    del loaded
+
+    # predictions and their evaluation
+    res = {}
+    for knn in (False, True):
+        root = os.path.join(work, f"seg_pred_{knn}")
+        before = _build.launch_counts()
+        t = time.perf_counter()
+        n = SG.write_predictions(ds, root, model, mapper, spec, knn=knn,
+                                 verbose=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        per_frame[f"segmentation.infer{'_knn' if knn else ''}"] = \
+            _launches_since(before, n)
+        check(n == len(seq), f"write_predictions wrote {n} scans")
+        for i in range(n):
+            f = os.path.join(root, "sequences", "00", "predictions",
+                             f"{i:06d}.label")
+            raw = np.fromfile(f, np.uint32)
+            check(raw.size == seq.read(i)[0].shape[0]
+                  and set(np.unique(raw)) <= set(mapper.raw_ids),
+                  f"prediction file {f}")
+        before = _build.launch_counts()
+        res[knn] = SG.evaluate_semantics(ds, root, device=dev)
+        per_frame["segmentation.eval"] = _launches_since(before, n)
+        r = res[knn]
+        print(f"write_predictions knn={knn}: {n} scans, {wall:.2f} s wall; "
+              f"evaluate_semantics mIoU {r['miou']:.4f}, present "
+              f"{r['miou_present']:.4f}, acc {r['acc']:.4f} {tag}")
+        check(r["scans"] == n and 0 < r["acc"] <= 1
+              and np.isfinite(r["miou"]), f"evaluation knn={knn}: {r}")
+    counts = _build.launch_counts()
+
+    # the card against the CPU: one float32 forward, TF32 off
+    m32 = RangeNet(dataclasses.replace(cfg53, compute_dtype=torch.float32))
+    m32.load_state_dict(model.state_dict())
+    x = feats[:1]
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            card = m32.to(dev)(x)
+            bf16 = model(x)
+            t = time.perf_counter()
+            cpu = m32.cpu()(x.cpu())
+            cpu_s = time.perf_counter() - t
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    agree = float((card.argmax(-1).cpu() == cpu.argmax(-1)).float().mean())
+    agree16 = float((bf16.argmax(-1) == card.argmax(-1)).float().mean())
+    print(f"darknet53 float32 forward, card (TF32 off) vs CPU ({cpu_s:.1f} "
+          f"s): argmax agreement {agree:.6f}, max |logit diff| "
+          f"{float((card.cpu() - cpu).abs().max()):.3e}; bf16 compute vs "
+          f"float32 on the card: {agree16:.6f}")
+    check(agree >= 0.999, "card and CPU argmax disagree")
+    del m32, card, cpu, bf16
+
+    # timing: a train step (batch 2) and an inference (one scan)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    tb = dict(features=feats, labels=torch.stack([b[1] for b in batch]),
+              weights=torch.stack([b[2] for b in batch]))
+    step = lambda: train_step(model, opt, tb)  # noqa: E731
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(10):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        step()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    step_ms = float(np.median(times))
+    d_ms, ops, _ = device_ms(step, 2, warmup=1)
+    inf_ms = cuda_ms(lambda: infer(model, feats[:1]), 10)
+    sb = bounds.train_step(bounds.conv_flops(model, feats))
+    print(f"darknet53 train step, batch 2 at {spec.H}x{spec.W}: median "
+          f"{step_ms:.3f} ms (min {min(times):.3f}, max {max(times):.3f}) "
+          f"over 10, peak memory {peak:.2f} GiB, device "
+          + ("not measured" if d_ms is None else
+             f"{d_ms:.3f} ms in {ops:.0f} operations, idle share "
+             f"{1 - d_ms / step_ms:.3f}")
+          + f"; {sb.flops / 1e12:.3f} TFLOP of convolutions a step, "
+          f"{sb.flops / step_ms / 1e9:.1f} TFLOP/s, bound {sb.ms:.3f} ms "
+          f"at the bf16 peak (share {sb.ms / step_ms:.3f}); infer one scan "
+          f"{inf_ms:.3f} ms {tag}")
+    del opt, model, tb, feats, batch
+
+    # fake_on_real: darknet21 on the mergemesh transfer, scored on real
+    _build.reset_launch_counts()
+    cfg, _ = _config(work, "seg_workflow")
+    t = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        wf = run_workflow(
+            "fake_on_real", ds, os.path.join(work, "wf"), cfg, steps=5,
+            frames=3, model_cfg=RangeNetConfig.darknet21(
+                num_classes=mapper.num_classes), verbose=False, device=dev)
+    wf_counts = _build.launch_counts()
+    per_frame["segmentation.fake_on_real"] = wf_counts
+    print(f"run_workflow fake_on_real (darknet21, 5 steps on 3 "
+          f"transferred scans): mIoU {wf['miou']:.4f}, acc "
+          f"{wf['acc']:.4f} on {wf['scans']} real scans, "
+          f"{time.perf_counter() - t:.1f} s wall {tag}")
+    check(wf["scans"] == len(seq) and np.isfinite(wf["miou"]),
+          f"fake_on_real result {wf}")
+    counts = {k: v + wf_counts[k] for k, v in counts.items()}
+    print(f"launches on the segmentation path: {counts}")
+    for k in ("zbuffer", "confusion"):
+        check(counts[k] > 0, f"kernel {k} never launched on the "
+              "segmentation path")
     return counts
 
 

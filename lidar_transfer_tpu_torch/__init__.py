@@ -11,7 +11,9 @@ modules it needs (``config``, ``datasets``, ``utils``).
 Ported so far: the ``lt-transfer`` CLI with the cp, mergemesh, mesh and
 catmesh adaptions (splat synthesis, targets denser than the source
 included), the deferred and materialised TSDF volume, PLY export and the
-metrics, and the integrate's measurement probes (``probes/``). The CUDA
+metrics, the integrate's measurement probes (``probes/``), and the
+segmentation model and its experiments (``models/``, ``experiments/``:
+RangeNet training, inference with the kNN cleanup, evaluation). The CUDA
 kernels live in ``csrc/`` and build with ``nvcc`` at first use
 (``_build.py``):
 

@@ -1,10 +1,13 @@
-"""Carry windows, volumes and range images between the two packages.
+"""Carry windows, volumes, range images and models between the packages.
 
 The JAX package's ``ScanWindow``, ``TSDFState`` and ``RangeImage`` (or any
 object with the same fields holding numpy-convertible arrays) become the
 port's tensors on a chosen device, and :func:`to_numpy` turns the port's
-tensors and tuples of tensors back into numpy arrays. This module imports
-no jax: it only reads the fields.
+tensors and tuples of tensors back into numpy arrays. A flax RangeNet's
+parameter tree and its optax Adam state, as nested dicts of numpy arrays,
+become the port's ``state_dict`` (:func:`rangenet_state_dict`) and
+``torch.optim.Adam`` state (:func:`adam_state_from_optax`). This module
+imports no jax: it only reads the fields.
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from lidar_transfer_tpu_torch.models.rangenet import RangeNet, RangeNetConfig
 from lidar_transfer_tpu_torch.ops.projection import RangeImage
 from lidar_transfer_tpu_torch.ops.tsdf import (COMPACT_DTYPES, F32_DTYPES,
                                                TSDFState)
@@ -67,3 +71,98 @@ def to_numpy(x):
     if isinstance(x, (tuple, list)):
         return type(x)(to_numpy(v) for v in x)
     return x
+
+
+def _rangenet_layers(cfg: RangeNetConfig) -> list[tuple[tuple[str, ...], str]]:
+    """(flax module path, the port's module name) of every layer, in
+    flax's auto-naming: ``Conv_i`` and ``GroupNorm_i`` count the stem, the
+    stages' downsampling, then the decoder; the last ``Conv`` is the head;
+    ``ResBlock_i`` holds ``Conv_0, GroupNorm_0, Conv_1, GroupNorm_1``."""
+    n = len(cfg.stage_blocks)
+    layers = [(("Conv_0",), "stem.conv"), (("GroupNorm_0",), "stem.norm")]
+    for s in range(n):
+        layers += [((f"Conv_{1 + s}",), f"down.{s}.conv"),
+                   ((f"GroupNorm_{1 + s}",), f"down.{s}.norm")]
+    for i in range(sum(cfg.stage_blocks)):
+        for j, part in enumerate(("conv1", "conv2")):
+            layers += [((f"ResBlock_{i}", f"Conv_{j}"),
+                        f"blocks.{i}.{part}.conv"),
+                       ((f"ResBlock_{i}", f"GroupNorm_{j}"),
+                        f"blocks.{i}.{part}.norm")]
+    for d in range(n):
+        layers += [((f"Conv_{1 + n + d}",), f"up.{d}.conv"),
+                   ((f"GroupNorm_{1 + n + d}",), f"up.{d}.norm")]
+    return layers + [((f"Conv_{2 * n + 1}",), "head")]
+
+
+def _flatten(tree, prefix=()) -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = v
+    return out
+
+
+#: flax leaf name -> (the port's parameter name, to the port's layout)
+_LEAVES = {"kernel": ("weight", lambda a: a.transpose(3, 2, 0, 1)),
+           "scale": ("weight", lambda a: a),
+           "bias": ("bias", lambda a: a)}
+
+
+def rangenet_state_dict(params: dict, cfg: RangeNetConfig
+                        ) -> dict[str, torch.Tensor]:
+    """A flax ``RangeNet(cfg)`` parameter tree (nested dicts of numpy
+    arrays, with or without the outer ``"params"``) -> the port's
+    ``RangeNet(cfg).state_dict()``, float32 on the CPU. Convolution
+    kernels go from (kh, kw, in, out) to (out, in, kh, kw). Raises
+    ``ValueError`` on a leaf left over, a parameter missing or a shape
+    that differs."""
+    if set(params) == {"params"}:
+        params = params["params"]
+    with torch.device("meta"):
+        want = RangeNet(cfg).state_dict()
+    flat = _flatten(params)
+    out = {}
+    for path, name in _rangenet_layers(cfg):
+        for leaf, (pname, layout) in _LEAVES.items():
+            if path + (leaf,) not in flat:
+                continue
+            a = np.asarray(flat.pop(path + (leaf,)), np.float32)
+            key = f"{name}.{pname}"
+            t = torch.from_numpy(np.array(layout(a)))
+            if key not in want or tuple(t.shape) != tuple(want[key].shape):
+                raise ValueError(
+                    f"flax {'/'.join(path + (leaf,))} {a.shape} does not "
+                    f"fit {key} "
+                    f"{tuple(want[key].shape) if key in want else None}")
+            out[key] = t
+    if flat:
+        raise ValueError("flax leaves left over: "
+                         + ", ".join("/".join(p) for p in flat))
+    missing = sorted(set(want) - set(out))
+    if missing:
+        raise ValueError(f"parameters missing from the flax tree: {missing}")
+    return out
+
+
+def adam_state_from_optax(optimizer: torch.optim.Adam, model: RangeNet,
+                          mu: dict, nu: dict, count) -> dict:
+    """optax Adam state of ``model``'s flax counterpart (``mu``, ``nu``:
+    parameter-shaped trees; ``count``: the step) -> a state dict for
+    ``optimizer.load_state_dict`` (``exp_avg``, ``exp_avg_sq``, ``step``)
+    on the parameters' devices. Raises as :func:`rangenet_state_dict`."""
+    m = rangenet_state_dict(mu, model.cfg)
+    v = rangenet_state_dict(nu, model.cfg)
+    names = {id(p): n for n, p in model.named_parameters()}
+    state, idx = {}, 0
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            name = names[id(p)]
+            state[idx] = {"step": torch.tensor(float(np.asarray(count))),
+                          "exp_avg": m[name].to(p.device),
+                          "exp_avg_sq": v[name].to(p.device)}
+            idx += 1
+    return {"state": state,
+            "param_groups": optimizer.state_dict()["param_groups"]}

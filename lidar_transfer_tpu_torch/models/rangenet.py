@@ -1,0 +1,225 @@
+"""RangeNet-style range-image semantic segmentation (PyTorch).
+
+Counterpart of ``lidar_transfer_tpu/models/rangenet.py`` (flax): the same
+network, parameter for parameter, so ``interop.rangenet_state_dict`` carries
+a flax parameter tree across and both give the same logits.
+
+  - darknet-style residual encoder that downsamples the width only (range
+    images are 64 x 2048: H is small, W carries the angular resolution);
+  - GroupNorm (group size 16, epsilon 1e-6 as flax's) in place of the
+    original's BatchNorm: no running statistics;
+  - ``compute_dtype`` convolutions (bf16 by default, under ``torch.autocast``)
+    on float32 parameters; the last 1x1 convolution runs in float32;
+  - a skip-connected decoder (nearest x2 along W) to per-pixel logits;
+  - masked cross-entropy (no-data pixels carry weight 0).
+
+Inputs and logits are (B, H, W, C) float32, as in the JAX module; inside,
+the network runs NCHW. Input features per pixel: (range, x, y, z,
+remission), the classic RangeNet 5-channel encoding.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+#: flax's GroupNorm epsilon (``nn.GroupNorm`` defaults to 1e-5)
+GN_EPS = 1e-6
+GROUP_SIZE = 16
+
+
+@dataclasses.dataclass(frozen=True)
+class RangeNetConfig:
+    num_classes: int = 34
+    # residual blocks per stage (darknet53 uses (1,2,8,8,4))
+    stage_blocks: tuple[int, ...] = (1, 2, 8, 8, 4)
+    stage_features: tuple[int, ...] = (64, 128, 256, 512, 1024)
+    stem_features: int = 32
+    compute_dtype: torch.dtype = torch.bfloat16
+    input_channels: int = 5
+    # recompute the encoder's residual blocks in the backward pass
+    # (torch.utils.checkpoint); the parameters are the same either way
+    remat: bool = False
+
+    @classmethod
+    def darknet53(cls, num_classes: int = 34) -> "RangeNetConfig":
+        """lidar-bonnetal's published darknet53 backbone shape (1,2,8,8,4
+        residual stages)."""
+        return cls(num_classes=num_classes)
+
+    @classmethod
+    def darknet21(cls, num_classes: int = 34) -> "RangeNetConfig":
+        return cls(num_classes=num_classes, stage_blocks=(1, 1, 2, 2, 1))
+
+    @classmethod
+    def tiny(cls, num_classes: int = 34) -> "RangeNetConfig":
+        """For tests and dry runs."""
+        return cls(num_classes=num_classes, stage_blocks=(1, 1),
+                   stage_features=(32, 64), stem_features=16)
+
+
+def _norm(features: int) -> nn.GroupNorm:
+    return nn.GroupNorm(features // GROUP_SIZE, features, eps=GN_EPS)
+
+
+class ConvNorm(nn.Module):
+    """Bias-free convolution, GroupNorm, leaky ReLU (0.1); the result in
+    the input's dtype. ``stride_w=2`` halves the width with flax's SAME
+    padding of an even width: (0, 1), so output column j starts at input
+    column 2j (``Conv2d(padding=1)`` would start it at 2j - 1)."""
+
+    def __init__(self, cin: int, cout: int, ksize: int = 3,
+                 stride_w: int = 1):
+        super().__init__()
+        self.stride_w = stride_w
+        pad = ksize // 2
+        self.conv = nn.Conv2d(cin, cout, ksize, stride=(1, stride_w),
+                              padding=(pad, 0 if stride_w == 2 else pad),
+                              bias=False)
+        self.norm = _norm(cout)
+
+    def forward(self, x):
+        dt = x.dtype
+        if self.stride_w == 2:
+            x = F.pad(x, (0, 1))
+        h = self.conv(x)
+        return F.leaky_relu(self.norm(h), 0.1).to(dt)
+
+
+class ResBlock(nn.Module):
+    """1x1 to half the features, 3x3 back, each normalised; plus x."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.conv1 = ConvNorm(features, features // 2, ksize=1)
+        self.conv2 = ConvNorm(features // 2, features)
+
+    def forward(self, x):
+        return x + self.conv2(self.conv1(x))
+
+
+class RangeNet(nn.Module):
+    """Width-downsampling darknet encoder + skip decoder."""
+
+    def __init__(self, cfg: RangeNetConfig):
+        super().__init__()
+        self.cfg = cfg
+        c = cfg
+        self.stem = ConvNorm(c.input_channels, c.stem_features)
+        widths = [c.stem_features] + list(c.stage_features)
+        self.down = nn.ModuleList(
+            ConvNorm(widths[s], widths[s + 1], stride_w=2)
+            for s in range(len(c.stage_blocks)))
+        # one flat list, in flax's ResBlock_<i> order
+        self.blocks = nn.ModuleList(
+            ResBlock(f) for n, f in zip(c.stage_blocks, c.stage_features)
+            for _ in range(n))
+        up, cin = [], widths[-1]
+        for skip in reversed(widths[:-1]):
+            up.append(ConvNorm(cin, max(skip, 32)))
+            cin = max(skip, 32) + skip
+        self.up = nn.ModuleList(up)
+        self.head = nn.Conv2d(cin, c.num_classes, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, input_channels) -> (B, H, W, num_classes) float32."""
+        c = self.cfg
+        dt = c.compute_dtype
+        x = x.permute(0, 3, 1, 2)
+        # pad the width to a multiple of 2^stages by repeating the edge
+        # column (the decoder's x2 resizes must land on their skips);
+        # the logits are cropped back below
+        W_in = x.shape[-1]
+        pad_w = (-W_in) % (2 ** len(c.stage_blocks))
+        if pad_w:
+            x = F.pad(x, (0, pad_w, 0, 0), mode="replicate")
+        with torch.autocast(x.device.type, dtype=dt,
+                            enabled=dt != torch.float32):
+            h = self.stem(x.to(dt))
+            skips, blk = [], 0
+            for down, n in zip(self.down, c.stage_blocks):
+                skips.append(h)
+                h = down(h)
+                for block in self.blocks[blk:blk + n]:
+                    if c.remat and torch.is_grad_enabled():
+                        h = checkpoint(block, h, use_reentrant=False)
+                    else:
+                        h = block(h)
+                blk += n
+            for up, skip in zip(self.up, reversed(skips)):
+                h = up(h.repeat_interleave(2, dim=-1))
+                h = torch.cat([h, skip.to(h.dtype)], dim=1)
+        with torch.autocast(x.device.type, enabled=False):
+            logits = self.head(h.float())
+        return logits[..., :W_in].permute(0, 2, 3, 1)
+
+    @torch.no_grad()
+    def init_parameters(self, generator: torch.Generator) -> None:
+        """flax's initialisers, drawn from ``generator`` (a CPU generator
+        for the same draws on every device): convolution kernels from
+        ``lecun_normal`` (a normal truncated at two standard deviations,
+        rescaled to variance 1/fan_in), biases 0, GroupNorm scale 1 and
+        bias 0."""
+        for m in self.modules():
+            if isinstance(m, nn.Conv2d):
+                fan_in = m.weight[0].numel()
+                std = (1.0 / fan_in) ** 0.5 / .87962566103423978
+                w = torch.empty(m.weight.shape)
+                nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
+                                      generator=generator)
+                m.weight.copy_(w)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, nn.GroupNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+
+
+def range_image_features(rng, xyz, remission, mask) -> torch.Tensor:
+    """Stack the 5-channel RangeNet input from projection outputs.
+
+    Args: rng (H,W), xyz (H,W,3), remission (H,W), mask (H,W) bool.
+    """
+    feats = torch.cat([rng[..., None], xyz,
+                       torch.clamp(remission, min=0.0)[..., None]], dim=-1)
+    return torch.where(mask[..., None], feats, 0.0)
+
+
+def masked_cross_entropy(logits, labels, weights) -> torch.Tensor:
+    """Mean CE over pixels with weight > 0; labels are class indices."""
+    logp = torch.log_softmax(logits, dim=-1)
+    ll = torch.gather(logp, -1, labels[..., None].long())[..., 0]
+    w = weights.to(torch.float32)
+    return -(ll * w).sum() / torch.clamp(w.sum(), min=1.0)
+
+
+def make_train_state(model: RangeNet, generator: torch.Generator,
+                     learning_rate: float = 1e-3) -> torch.optim.Adam:
+    """Initialise ``model``'s parameters from ``generator`` and return its
+    Adam optimizer, with optax.adam's defaults (b1 0.9, b2 0.999, eps
+    1e-8)."""
+    model.init_parameters(generator)
+    return torch.optim.Adam(model.parameters(), lr=learning_rate,
+                            betas=(0.9, 0.999), eps=1e-8)
+
+
+def train_step(model: RangeNet, optimizer: torch.optim.Optimizer,
+               batch: dict) -> torch.Tensor:
+    """One Adam step on ``batch`` (features, labels, weights); -> the loss,
+    a device scalar (reading it waits for the device)."""
+    optimizer.zero_grad(set_to_none=True)
+    loss = masked_cross_entropy(model(batch["features"]), batch["labels"],
+                                batch["weights"])
+    loss.backward()
+    optimizer.step()
+    return loss.detach()
+
+
+@torch.no_grad()
+def infer(model: RangeNet, features: torch.Tensor) -> torch.Tensor:
+    """-> per-pixel argmax class indices, int32."""
+    return torch.argmax(model(features), dim=-1).to(torch.int32)

@@ -19,6 +19,8 @@ from typing import NamedTuple
 H100_TB_PER_S = 3.35
 #: published float32 rate of an H100 SXM outside the tensor cores, TFLOP/s
 H100_F32_TFLOPS = 67.0
+#: published dense bf16 rate of an H100 SXM on its tensor cores, TFLOP/s
+H100_BF16_TFLOPS = 989.0
 
 
 class Bound(NamedTuple):
@@ -160,3 +162,37 @@ def pack_occupancy(cells) -> Bound:
     cx, cy, cz = cells
     words = -(-cx // 4) * -(-cy // 4) * -(-cz // 2)
     return bound(cx * cy * cz + 4 * words)
+
+
+def conv_flops(model, x) -> int:
+    """Operations (a multiply and an add each) of every ``nn.Conv2d`` in
+    one forward of ``model`` on ``x``, counted from each layer's weight
+    and output shapes by forward hooks (the network's other work, the
+    norms and activations, is elementwise and left out)."""
+    import torch
+    from torch import nn
+
+    total = [0]
+
+    def hook(m, _, out):
+        total[0] += 2 * out.numel() * m.weight[0].numel()
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, nn.Conv2d)]
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
+def train_step(forward_flops: int) -> Bound:
+    """A train step of a convolution network whose forward takes
+    ``forward_flops`` (:func:`conv_flops` of the batch): the forward and
+    the two products of the backward (the gradients of the inputs and of
+    the weights), 3x the forward, at the bf16 tensor-core rate."""
+    flops = 3 * forward_flops
+    return Bound(0, int(flops), flops_ms(flops, H100_BF16_TFLOPS),
+                 "operations")

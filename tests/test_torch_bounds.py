@@ -122,3 +122,32 @@ def test_raymarch_counts_sectors_of_what_the_march_read():
     assert bounds.raymarch(10, 1, 0, 0, 0).bytes == 382
     assert bounds.raymarch(1, 1, 100, 0, 0).flops == 2000
     assert bounds.raymarch(1, 1, 0, 1, 0).flops == 480
+
+
+@pytest.mark.parametrize("W", [32, 30])
+def test_conv_flops_count_every_convolution(W):
+    """``conv_flops`` of the tiny RangeNet, by hand: 2 x out x (in x kh x
+    kw) for each convolution at its width (the input padded to a multiple
+    of 4, the stride-2 stages at half and quarter width); the train step
+    3x that at the bf16 rate."""
+    import torch
+
+    from lidar_transfer_tpu_torch.models import RangeNet, RangeNetConfig
+
+    m = RangeNet(RangeNetConfig.tiny(num_classes=7))
+    Wp = W + (-W) % 4
+    H, B = 8, 2
+    px = [B * H * Wp, B * H * Wp // 2, B * H * Wp // 4]
+    layers = [  # (pixels, cout, cin * kh * kw)
+        (px[0], 16, 5 * 9), (px[1], 32, 16 * 9),
+        (px[1], 16, 32), (px[1], 32, 16 * 9),             # block 0
+        (px[2], 64, 32 * 9),
+        (px[2], 32, 64), (px[2], 64, 32 * 9),             # block 1
+        (px[1], 32, 64 * 9), (px[0], 32, 64 * 9),         # decoder
+        (px[0], 7, 48)]                                   # head
+    want = sum(2 * p * co * k for p, co, k in layers)
+    got = bounds.conv_flops(m, torch.zeros(B, H, W, 5))
+    assert got == want
+    b = bounds.train_step(got)
+    assert b.flops == 3 * got and b.by == "operations"
+    assert b.ms == pytest.approx(3 * got / 989e12 * 1e3)

@@ -79,13 +79,17 @@ def test_no_import_of_the_jax_package():
 @pytest.mark.parametrize("module", [
     "lidar_transfer_tpu_torch.cli", "lidar_transfer_tpu_torch.probes",
     "lidar_transfer_tpu_torch.probes.cases",
-    "lidar_transfer_tpu_torch.pipeline.deform"])
+    "lidar_transfer_tpu_torch.pipeline.deform",
+    "lidar_transfer_tpu_torch.experiments.segmentation",
+    "lidar_transfer_tpu_torch.experiments.workflows",
+    "lidar_transfer_tpu_torch.experiments.compare_datasets",
+    "lidar_transfer_tpu_torch.interop"])
 def test_fresh_interpreter_loads_neither(module):
     """Importing the port's entry modules in a fresh interpreter leaves
-    neither package in ``sys.modules``."""
+    neither package, nor flax or optax, in ``sys.modules``."""
     code = (f"import sys, {module}\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('lidar_transfer_tpu', 'jax', 'jaxlib')]\n"
+            "('lidar_transfer_tpu', 'jax', 'jaxlib', 'flax', 'optax')]\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
