@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-1. Builds the ten CUDA kernels from ``lidar_transfer_tpu_torch/csrc`` (one
+1. Builds the eleven CUDA kernels from ``lidar_transfer_tpu_torch/csrc`` (one
    nvcc per source, in parallel) and holds each against its plain PyTorch
    version on the card: the z-buffer bit-exact (without a workspace, and
    with one workspace through a sequence of image sizes and back, N = 0,
@@ -37,7 +37,11 @@
    and a rolling sensor's, fine steps of 0.5 and 2 voxels, max_steps cut
    at 90 and at K - 1, K and K + 1 past a ray's sixth batch of K samples,
    rays that start inside negative space; rays ending at t_far after a
-   sample count K does not divide counted) (``kernel_checks``).
+   sample count K does not divide counted); the mesh raycast kernel (row
+   C) against ``raycast_mesh_plain`` in 6 cases, bit for bit on every ray
+   (soups of 1, 512 and 5,003 triangles and exact copies that tie, 65,613
+   rays, a shared and (R, 3) origins; an empty mesh launches nothing)
+   (``kernel_checks``).
 2. Drives each path at the reference operating point (HDL64 64x2048
    source, voxel 0.05 m, bounds +-50/+-50/+-5 m, fixed bounds), with the
    launch counts set to 0 just before it and read just after:
@@ -52,6 +56,11 @@
    - cp: the CLI as identity (exact: IoU and Acc 1, MSE 0) and as
      HDL64 -> HDL32;
    - catmesh: the CLI as HDL64 -> HDL32, then ``fused_state()``;
+   - catmesh's oracle engine: ``TransferEngine(catmesh_engine="oracle")``
+     HDL64 -> HDL32, three frames of scan 0 through ``transfer_fast``
+     (the integrate, the seam-aware surface cells, host marching per
+     category, ``dedupe_mesh``, the mesh raycast kernel once a frame),
+     each stage timed;
    - upsampling, HDL64 -> HDL64x2 (128 beams, the same fov): the CLI per
      frame and with --stream 4;
    - raymarch: ``TransferEngine(synthesis="raymarch")``, mergemesh, compact
@@ -78,7 +87,12 @@
    16-plane X-slabs of the fused volumes against the plain integrate and
    the plain chain, a non-empty PLY, a cp identity transfer equal to the
    source projection bit for bit, catmesh's files and scan equal to
-   mergemesh's bit for bit; the march kernel against ``raycast_plain`` on
+   mergemesh's bit for bit; the oracle's three frames equal, row C against
+   ``raycast_mesh_plain`` on two full rows of the frame's rays against its
+   whole mesh (bit for bit) and against the port's native BVH on all
+   65,536 rays (hit masks and labels within the JAX engine's seam budget
+   of 0.7 %, the attributes equal where both take one triangle), the
+   frame beside the splat engine's; the march kernel against ``raycast_plain`` on
    the raymarch frame's 2048x2048x208 volume and 65,536 rays, and on the
    rolling raymarch engine's (R, 3)-origin march, equal on every ray, the
    raymarch frame beside the splat frame (both-hit share, range
@@ -100,7 +114,10 @@
    cell indices and ``bincount``; ``fill_`` for the writes: timed here,
    called by nothing in the port), beside its bound from
    ``probes/bounds.py``; every case of the integrate, its chain and the
-   z-buffer (``probes/cases.py``); an empty kernel launch; transfer_fast
+   z-buffer (``probes/cases.py``); row C's device ms (CUDA events around
+   the launch, median of 3) beside its bound on the oracle frame's mesh,
+   and the frame's split into stages (median of 3); an empty kernel
+   launch; transfer_fast
    per frame of every adaption and rolling engine, a darknet53 train
    step's median ms, peak memory and idle share and an inference's ms,
    the march kernel's
@@ -678,6 +695,62 @@ def _check_raymarch_kernel(torch, kernels) -> None:
         replaces="lidar_transfer_tpu/ops/raycast.py:234", max_abs_err=worst)
 
 
+def _check_mesh_raycast_kernel(torch, kernels) -> None:
+    """Phase 1 for row C, the mesh raycast kernel, against
+    ``raycast_mesh_plain`` on the card, bit for bit (t, triangle index and
+    hit on every ray): random soups of 1, 512 (one tile) and 5,003
+    triangles (a ragged last tile) followed by exact copies of every 7th
+    triangle (a tie in t, which the lower index keeps), against 65,613 rays
+    (a ragged last block), from a shared origin and from (R, 3) origins;
+    an empty mesh misses everywhere without a launch."""
+    from lidar_transfer_tpu_torch import _build
+    from lidar_transfer_tpu_torch.ops import triangles as TT
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(5)
+    R = 65536 + 77
+    d = rng.normal(size=(R, 3)).astype(np.float32)
+    dirs = torch.from_numpy(d / np.linalg.norm(d, axis=1,
+                                               keepdims=True)).to(dev)
+    origins = (torch.zeros(3, device=dev), torch.from_numpy(
+        rng.uniform(-1, 1, (R, 3)).astype(np.float32)).to(dev))
+    n, ties = 0, 0
+    for T in (1, 512, 5003):
+        c = rng.uniform(-8, 8, (T, 3)).astype(np.float32)
+        tri = c[:, None, :] + rng.normal(0, 0.6, (T, 3, 3)).astype(
+            np.float32)
+        tri = torch.from_numpy(np.concatenate([tri, tri[::7]])).to(dev)
+        for o in origins:
+            before = _build.launch_counts()["mesh_raycast"]
+            got = TT.raycast_mesh(o, dirs, tri)
+            ref = TT.raycast_mesh_plain(o, dirs, tri)
+            torch.cuda.synchronize()
+            check(_build.launch_counts()["mesh_raycast"] == before + 1,
+                  "raycast_mesh on the card did not launch row C once")
+            same = all(torch.equal(a, b) for a, b in zip(got, ref))
+            hits = int(ref.hit.sum())
+            print(f"mesh_raycast T={tri.shape[0]} R={R} origin "
+                  f"{tuple(o.shape)}: {hits} hits, t mismatches "
+                  f"{int((got.t != ref.t).sum())}, tri mismatches "
+                  f"{int((got.tri != ref.tri).sum())}")
+            check(same, f"mesh_raycast T={tri.shape[0]}: kernel != plain")
+            check(T == 1 or hits > R // 20, "mesh_raycast: too few hits")
+            ties += int((ref.tri >= T).sum())
+            n += 1
+    check(ties == 0, "mesh_raycast: a later copy won a tie")
+    before = _build.launch_counts()["mesh_raycast"]
+    empty = TT.raycast_mesh(origins[0], dirs,
+                            torch.zeros((0, 3, 3), device=dev))
+    check(not bool(empty.hit.any()) and bool((empty.tri == -1).all())
+          and _build.launch_counts()["mesh_raycast"] == before,
+          "mesh_raycast: an empty mesh hit or launched")
+    print(f"mesh_raycast: {n} cases equal to raycast_mesh_plain on every "
+          "ray, bit for bit (every tie kept by the lower index)")
+    kernels["mesh_raycast"] = dict(
+        route="cuda", source="lidar_transfer_tpu_torch/csrc/mesh_raycast.cu",
+        replaces="lidar_transfer_tpu/ops/triangles.py:57", max_abs_err=0.0)
+
+
 def _check_integrate_cases(torch, rng) -> float:
     """Phase 1 for the integrate's vector and scalar variants at 128x128xZ
     and 127x125xZ (a last warp with fewer columns; with Z = 13 a last run
@@ -990,6 +1063,7 @@ def kernel_checks(torch, kernels) -> tuple:
     _check_probe_kernels(torch, rng, kernels)
     _check_pack_kernel(torch, kernels)
     _check_raymarch_kernel(torch, kernels)
+    _check_mesh_raycast_kernel(torch, kernels)
     return pix_t, key_t, npix, pred_t, tgt_t, C
 
 
@@ -1067,6 +1141,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         paths["cp"] = _cp_path(torch, work, tag, per_frame)
         paths["catmesh"] = _catmesh_path(torch, work, tag, per_frame)
+        torch.cuda.empty_cache()
+        paths["oracle"] = _oracle_path(torch, work, kernels, tag, per_frame)
         torch.cuda.empty_cache()
         paths["upsample"] = _upsample_path(torch, work, tag, per_frame)
         torch.cuda.empty_cache()
@@ -1207,7 +1283,9 @@ def _kernel_cases(torch, kernels, tag) -> None:
     the case their path launches (float32 state with the table)."""
     from lidar_transfer_tpu_torch.probes import cases
 
-    rows = {r["case"]: r for r in cases.measure()}
+    # row C's case ("mesh") takes an oracle frame: _oracle_path times it
+    rows = {r["case"]: r for r in cases.measure(
+        tuple(g for g in cases.GROUPS if g != "mesh"))}
     torch.cuda.empty_cache()
     for name, r in rows.items():
         d = r["device_ms"]
@@ -1686,6 +1764,164 @@ def _catmesh_path(torch, work, tag, per_frame):
         for k, vs in ms.items()) + f" (timed mergemesh, catmesh, catmesh, "
         f"mergemesh) {tag}")
     _profile_frames(torch, eng, wins, min(ms["catmesh"]), tag)
+    return counts
+
+
+def _oracle_path(torch, work, kernels, tag, per_frame):
+    """Catmesh's oracle engine at the reference point on the dataset
+    ``work/kitti`` (HDL64 -> HDL32, fixed bounds, float32 state): three
+    frames of scan 0 through ``transfer_fast``, each stage timed
+    (``TransferEngine.spans``); row C against ``raycast_mesh_plain`` on two
+    full rows of rays against the frame's whole mesh (bit for bit) and
+    against the port's native BVH on all 65,536 rays; row C's device ms
+    beside its bound; the frame against the splat engine's. Returns the
+    launch counts of the path."""
+    from lidar_transfer_tpu_torch import _build, native
+    from lidar_transfer_tpu_torch.config import HDL64, SensorSpec
+    from lidar_transfer_tpu_torch.ops import triangles as TT
+    from lidar_transfer_tpu_torch.ops.triangles_cuda import mesh_raycast_cuda
+    from lidar_transfer_tpu_torch.pipeline import deform as TD
+    from lidar_transfer_tpu_torch.pipeline.multiscan import load_window
+    from lidar_transfer_tpu_torch.probes import bounds
+
+    dev = torch.device("cuda")
+    cfg, _ = _config(work, "oracle", adaption="catmesh")
+    hdl32 = SensorSpec.from_yaml(HDL32_PATH)
+    seq, cap = _sequence(work)
+    eng = TD.TransferEngine(HDL64, hdl32, cfg, fixed_bounds=True,
+                            device=dev, catmesh_engine="oracle")
+    w0 = load_window(seq, cfg, 0, cap, dev)
+
+    # ------------------------------------------- 2. the path, as a user
+    _build.reset_launch_counts()
+    frames, spans, walls = [], [], []
+    for _ in range(3):
+        eng.spans = {}
+        t = time.perf_counter()
+        frames.append(eng.transfer_fast(w0))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        spans.append(eng.spans)
+    counts = _build.launch_counts()
+    eng.spans = None
+    per_frame["oracle"] = {k: v / 3 for k, v in counts.items() if v}
+    print(f"launches on the oracle path (3 frames): {counts}")
+    for k in ("zbuffer", "tsdf_integrate", "tsdf_geometry", "mesh_raycast"):
+        check(counts[k] > 0, f"kernel {k} never launched on the oracle "
+              "path")
+    check(counts["mesh_raycast"] == 3, "row C not launched once a frame")
+    check(all(_equal_scans(torch, f, frames[0]) for f in frames[1:]),
+          "oracle: three frames of one scan differ")
+    vs, mesh = frames[0], eng._last_mesh
+    check(vs.adaption == "catmesh" and mesh is not None, "oracle: no mesh")
+    T, V = mesh.faces.shape[0], mesh.verts.shape[0]
+    cats = sorted(k for k in spans[0] if k.startswith("march["))
+    med = {k: float(np.median([s.get(k, 0.0) for s in spans]))
+           for k in spans[0]}
+    march = float(np.median([sum(s[k] for k in cats) for s in spans]))
+    order = ["projection", "integrate", "cells", "dedupe", "upload",
+             "raycast", "attributes"]
+    print(f"oracle frame HDL64->HDL32 (catmesh, fixed bounds, f32): wall "
+          f"{' / '.join(f'{w:.3f}' for w in walls)} s (median "
+          f"{float(np.median(walls)):.3f}); T = {T} triangles, V = {V} "
+          f"vertices, {len(cats)} categories, R = {eng.rays.shape[0]} rays "
+          f"{tag}")
+    print("oracle frame split, median of 3 (s): " + "; ".join(
+        f"{k} {med[k]:.4f}" for k in order if k in med)
+        + f"; host marching {march:.4f} ({', '.join(f'{k} {med[k]:.3f}' for k in cats)}) {tag}")
+    hit = float(vs.mask.float().mean())
+    splat = TD.TransferEngine(HDL64, hdl32, cfg, fixed_bounds=True,
+                              device=dev).transfer_fast(w0)
+    both = vs.mask & splat.mask
+    diff = (vs.range - splat.range)[both].abs()
+    print(f"oracle frame against the splat engine's: hit rate {hit:.4f} "
+          f"(splat {float(splat.mask.float().mean()):.4f}), both hit "
+          f"{float(both.float().mean()):.4f}, labels equal on "
+          f"{float((vs.label == splat.label)[both].float().mean()):.4f} of "
+          f"those, range difference median {float(diff.median()):.4f} m")
+    check(hit > 0.3 and float(both.sum()) > 0.5 * float(splat.mask.sum()),
+          "oracle frame mostly empty or apart from the splat frame")
+    del splat
+
+    # ------ 3. row C on the frame's mesh: plain, native BVH, its timing
+    tris = torch.from_numpy(mesh.verts).to(dev)[
+        torch.from_numpy(mesh.faces).to(dev).to(torch.int64)].contiguous()
+    origin = torch.zeros(3, device=dev)
+    rays = eng.rays
+    R = rays.shape[0]
+    rows = rays.reshape(hdl32.H, hdl32.W, 3)[15:17].reshape(-1, 3)
+    rows = rows.contiguous()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    ref = TT.raycast_mesh_plain(origin, rows, tris, chunk=16384)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t) * 1e3
+    sub = TT.raycast_mesh(origin, rows, tris)
+    torch.cuda.synchronize()
+    print(f"row C on rows 15-16 ({rows.shape[0]} rays) against the whole "
+          f"mesh: {int(ref.hit.sum())} hits, t mismatches "
+          f"{int((sub.t != ref.t).sum())}, tri mismatches "
+          f"{int((sub.tri != ref.tri).sum())}; plain {plain_ms:.1f} ms")
+    check(all(torch.equal(a, b) for a, b in zip(sub, ref)),
+          "oracle: row C != raycast_mesh_plain on the frame's mesh")
+    check(bool(ref.hit.any()), "oracle: rows 15-16 hit nothing")
+    full = TT.raycast_mesh(origin, rays, tris)
+    check(torch.equal(full.hit.reshape(vs.mask.shape), vs.mask)
+          and torch.equal(torch.where(full.hit, full.t, 0.0).reshape(
+              vs.range.shape), vs.range),
+          "oracle: row C on the frame's mesh != the frame")
+    t = time.perf_counter()
+    nat = native.trace_mesh(rays.cpu().numpy(), np.zeros(3), mesh.verts,
+                            mesh.faces, mesh.labels, mesh.rems)
+    nat_s = time.perf_counter() - t
+    k_hit, k_tri = full.hit.cpu().numpy(), full.tri.cpu().numpy()
+    n_hit = nat.tri >= 0
+    lbl = vs.label.reshape(-1).cpu().numpy()
+    bh = k_hit & n_hit
+    same = bh & (k_tri == nat.tri)
+    seam = bh & (k_tri != nat.tri)
+    mask_agree = float((k_hit == n_hit).mean())
+    lbl_agree = float((lbl == nat.labels)[bh].mean())
+    seam_agree = float((lbl == nat.labels)[seam].mean()) if seam.any() \
+        else 1.0
+    # relative: g++ contracts the native library's products into FMAs
+    rng_err = float((np.abs(vs.range.reshape(-1).cpu().numpy() - nat.range)
+                     / np.maximum(nat.range, 1e-6))[same].max())
+    print(f"row C against the native BVH on all {R} rays ({nat_s:.1f} s "
+          f"on the host, build included): hit masks agree on "
+          f"{mask_agree:.6f}, both hit {int(bh.sum())}, same triangle "
+          f"{int(same.sum())}; labels agree on {lbl_agree:.6f} of the "
+          f"pixels both hit and on {seam_agree:.4f} of the "
+          f"{int(seam.sum())} where the triangles differ (seams, shared "
+          f"edges); range on the same triangle within {rng_err:.3g} "
+          f"relative")
+    check(mask_agree >= 0.993 and lbl_agree >= 0.993,
+          "oracle: row C and the native BVH apart beyond the seam budget")
+    check(rng_err <= 1e-4 and bool(
+        (vs.remission.reshape(-1).cpu().numpy() == nat.remissions)[
+            same].all()), "oracle: the frame's attributes != native's")
+
+    # a call of one long kernel: CUDA events around it give its device time
+    dev_ms, k_ms, sub_ms = ([cuda_ms(fn, 1, warmup=0) for _ in range(3)]
+                            for fn in (
+        lambda: mesh_raycast_cuda(origin, rays, tris),
+        lambda: TT.raycast_mesh(origin, rays, tris),
+        lambda: TT.raycast_mesh(origin, rows, tris)))
+    rb = bounds.mesh_raycast(R, T, 1)
+    d = float(np.median(dev_ms))
+    kernels["mesh_raycast"].update(
+        ms=float(np.median(k_ms)), device_ms=d, plain_ms=plain_ms,
+        plain_rays=int(rows.shape[0]),
+        subset_ms=float(np.median(sub_ms)), bound_ms=rb.ms,
+        bound_by=rb.by, library_ms=None, triangles=T, rays=R)
+    print(f"row C: device {' / '.join(f'{x:.2f}' for x in dev_ms)} ms "
+          f"(median {d:.2f}; CUDA events around the launch alone), wrapper "
+          f"median {float(np.median(k_ms)):.2f} ms, bound {rb.ms:.2f} ms "
+          f"by {rb.by} ({rb.flops:.4g} operations, {rb.bytes} bytes), share "
+          f"{rb.ms / d:.3f}, {R * T / d / 1e9:.4f} T tests/s; rows 15-16: "
+          f"kernel {float(np.median(sub_ms)):.2f} ms, plain {plain_ms:.1f} "
+          f"ms; no single PyTorch call computes it {tag}")
+    del tris, full, ref, sub, frames, vs
     return counts
 
 

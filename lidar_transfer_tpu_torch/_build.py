@@ -63,6 +63,7 @@ SIGNATURES = {
                     _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                     _F, _F, _F, _F, _F, _F, _F, _F, _F, _F,
                     _P, _P, _P, _P, _P, _P),
+    "lt_mesh_raycast": (_P, _I, _P, _I, _P, _I, _P, _P, _P),
     "lt_empty_launch": (_P,),
 }
 
@@ -70,7 +71,7 @@ SIGNATURES = {
 _launches = {"zbuffer": 0, "confusion": 0, "tsdf_integrate": 0,
              "tsdf_integrate_chain": 0, "tsdf_geometry": 0,
              "probe_parts": 0, "probe_ablate": 0, "probe_write": 0,
-             "raymarch": 0, "raymarch_pack": 0}
+             "raymarch": 0, "raymarch_pack": 0, "mesh_raycast": 0}
 _lib: ctypes.CDLL | None = None
 _lock = threading.Lock()
 

@@ -1,9 +1,11 @@
 """Iso-surface extraction from TSDF volumes (marching tetrahedra, numpy).
 
-Copy of ``marching_tetrahedra`` and ``marching_tetrahedra_cells`` (with
-their helpers) of ``lidar_transfer_tpu/ops/marching.py``: that module is
-numpy alone, but its package's ``__init__`` imports jax, so the port keeps
-its own copy. Each cell splits into 6 tetrahedra around its main diagonal;
+Copy of ``marching_tetrahedra``, ``marching_tetrahedra_cells``,
+``dedupe_mesh`` and ``extract_mesh`` (with their helpers) of
+``lidar_transfer_tpu/ops/marching.py``: that module is numpy alone, but its
+package's ``__init__`` imports jax, so the port keeps its own copy
+(``extract_mesh`` also takes a state of tensors, in any of the port's
+storage dtypes). Each cell splits into 6 tetrahedra around its main diagonal;
 every tet has 3 non-trivial sign patterns, derived in code, and triangle
 winding follows the TSDF gradient (normals point to positive/outside).
 Host-side: only surface cells are processed, so the cost scales with the
@@ -242,3 +244,64 @@ def _tsdf_gradient(tsdf: np.ndarray, points: np.ndarray) -> np.ndarray:
     gz = (tsdf[gi[:, 0], gi[:, 1], gi[:, 2] + 1]
           - tsdf[gi[:, 0], gi[:, 1], gi[:, 2] - 1])
     return np.stack([gx, gy, gz], axis=1)
+
+
+def dedupe_mesh(tri: np.ndarray, decimals: int = 5,
+                return_index: bool = False):
+    """Triangle soup -> (verts (V,3), faces (T,3)) with shared vertices.
+
+    Produces the indexed layout the reference's mesh consumers use
+    (verts/faces arrays, fusion_lidar.py:434-436).
+    ``return_index`` additionally returns (V,) soup-vertex indices such
+    that ``verts == tri.reshape(-1, 3)[index]`` — the volume-free cells
+    path uses it to map each kept vertex back to its source triangle
+    (``index // 3``) for attribute lookups.
+    """
+    flat = tri.reshape(-1, 3)
+    key = np.round(flat, decimals)
+    _, first, inv = np.unique(key, axis=0, return_index=True,
+                              return_inverse=True)
+    verts = flat[first]
+    faces = inv.reshape(-1, 3)
+    if return_index:
+        return verts.astype(np.float32), faces.astype(np.int32), first
+    return verts.astype(np.float32), faces.astype(np.int32)
+
+
+def _host(vol, dtype) -> np.ndarray:
+    """A volume as a host array of ``dtype``: a numpy array, or a tensor
+    in any storage dtype (a bf16 tensor through float32, exactly)."""
+    if hasattr(vol, "detach"):
+        vol = vol.detach().cpu()
+        vol = (vol.float() if vol.is_floating_point() else vol.int()).numpy()
+    return np.asarray(vol, dtype)
+
+
+def extract_mesh(state, spec, color_lut: np.ndarray | None = None):
+    """TSDF state -> (verts_world (V,3), faces (T,3), normals (V,3),
+    labels (V,), remissions (V,)).
+
+    ≡ ``TSDFVolume.get_mesh`` (fusion_lidar.py:403-424): vertices in world
+    coords, per-vertex attributes gathered from the volume at the rounded
+    vertex voxel (the reference gathers color/remission the same way,
+    :409-418). Labels are integer ids (no packed-color round-trip).
+    """
+    tsdf = _host(state.tsdf, np.float32)
+    labels = _host(state.label, np.int32)
+    rems = _host(state.rem, np.float32)
+    tri = marching_tetrahedra(tsdf, 0.0)
+    verts, faces = dedupe_mesh(tri)
+
+    gi = np.clip(np.round(verts).astype(np.int64), 0,
+                 np.array(tsdf.shape) - 1)
+    v_lbl = labels[gi[:, 0], gi[:, 1], gi[:, 2]]
+    v_rem = rems[gi[:, 0], gi[:, 1], gi[:, 2]]
+
+    grad = _tsdf_gradient(tsdf, verts.astype(np.float64))
+    nrm = grad / np.maximum(np.linalg.norm(grad, axis=1, keepdims=True),
+                            1e-12)
+
+    verts_world = verts * spec.voxel_size + np.asarray(spec.origin,
+                                                       np.float32)
+    return (verts_world.astype(np.float32), faces, nrm.astype(np.float32),
+            v_lbl.astype(np.int32), v_rem.astype(np.float32))

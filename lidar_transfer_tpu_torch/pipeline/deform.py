@@ -22,10 +22,18 @@ Counterpart of ``lidar_transfer_tpu/pipeline/deform.py``:
               (kernel C's chain mode); with ``"volume"`` the chain runs in
               the frame and the splat probes the volume. Under fixed bounds
               the chain reads the placement's geometry table (kernel D).
-  catmesh   — on its splat engine, the mergemesh body with
+  catmesh   — on its splat engine (the default), the mergemesh body with
               ``adaption="catmesh"`` on the output: every candidate carries
               its own source pixel's label, so labels never bleed across
               category seams, which is what per-category meshing is for.
+              On its ``"oracle"`` engine, the literal per-category
+              construction: the merged image integrated in the frame
+              (kernel C), one iso-surface per category (marched on the
+              host from the seam-aware surface cells, or from the whole
+              volume below 2**24 voxels) and the target's rays cast
+              against those meshes (``ops/triangles.raycast_mesh``: the
+              mesh raycast kernel on the card, its plain version on the
+              CPU).
 
 A target denser than the source (vertically or horizontally) adds chord
 candidates between adjacent connected source returns
@@ -41,16 +49,14 @@ deferred), and ``transfer_fast``/``transfer_stream`` take ``transfer``.
 a sensor that moves while it spins: by re-projecting the splat winners or
 the volume's band samples against the per-column origins, or by marching
 the moving rays, one origin a ray, through the fused volume.
-
-Not ported yet (ROADMAP.md, queue 1), and refused with
-``NotImplementedError`` at construction: catmesh's ``"oracle"`` engine
-(per-category marching and a mesh raycast).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
+import time
 import warnings
 from typing import NamedTuple
 
@@ -61,7 +67,8 @@ from lidar_transfer_tpu_torch.config import SensorSpec, TransferConfig
 from lidar_transfer_tpu_torch.ops import projection as P
 from lidar_transfer_tpu_torch.ops import raycast as RC
 from lidar_transfer_tpu_torch.ops import tsdf as TS
-from lidar_transfer_tpu_torch.ops.marching import (marching_tetrahedra,
+from lidar_transfer_tpu_torch.ops.marching import (dedupe_mesh,
+                                                   marching_tetrahedra,
                                                    marching_tetrahedra_cells)
 from lidar_transfer_tpu_torch.ops.splat import (_band_samples,
                                                 _target_assemble,
@@ -69,6 +76,8 @@ from lidar_transfer_tpu_torch.ops.splat import (_band_samples,
 from lidar_transfer_tpu_torch.ops.surface import extract_surface_cells
 from lidar_transfer_tpu_torch.ops.transforms import (interpolate_pose,
                                                      transform_points)
+from lidar_transfer_tpu_torch.ops.triangles import (mesh_hit_attributes,
+                                                    raycast_mesh)
 from lidar_transfer_tpu_torch.ops.tsdf_cuda import (integrate_chain_cuda,
                                                     integrate_cuda,
                                                     precompute_geometry_cuda)
@@ -76,7 +85,16 @@ from lidar_transfer_tpu_torch.pipeline.multiscan import (ScanWindow,
                                                          merge_window)
 from lidar_transfer_tpu_torch.utils.plyio import write_ply
 
-_NOT_PORTED = "is not ported yet (ROADMAP.md, queue 1)"
+
+class CategoryMesh(NamedTuple):
+    """The per-category meshes of an oracle catmesh frame, concatenated
+    (host numpy): world vertices, faces, and each vertex's category and
+    remission."""
+
+    verts: np.ndarray        # (V,3) f32
+    faces: np.ndarray        # (T,3) i32
+    labels: np.ndarray       # (V,)  i32
+    rems: np.ndarray         # (V,)  f32
 
 
 class VirtualScan(NamedTuple):
@@ -125,13 +143,16 @@ class TransferEngine:
     # volume probe: every band sample must also carry label > 0
     band_label_probe: bool = False
     # catmesh engine: "splat" (the mergemesh body) or "oracle" (per-category
-    # iso-surfaces and a mesh raycast; not ported yet)
+    # iso-surfaces and a mesh raycast)
     catmesh_engine: str = "splat"
     # chord candidates for a denser target: "auto"/True when the target is
     # denser, False never (interior target rows/columns stay empty)
     upsample_interp: bool | str = "auto"
     # connectivity angle (degrees) of two adjacent returns' chord
     interp_angle_deg: float = 3.0
+    # a dict to which catmesh's oracle adds the wall time (s) of each of
+    # its stages, the device synchronised around each; None: not timed
+    spans: dict | None = None
 
     def __post_init__(self):
         if self.synthesis not in ("splat", "raymarch"):
@@ -143,9 +164,6 @@ class TransferEngine:
         if self.catmesh_engine not in ("splat", "oracle"):
             raise ValueError(f"catmesh_engine must be 'splat' or 'oracle': "
                              f"{self.catmesh_engine!r}")
-        if self.cfg.adaption == "catmesh" and self.catmesh_engine == "oracle":
-            raise NotImplementedError(
-                f"catmesh_engine 'oracle' {_NOT_PORTED}")
         self.device = torch.device(self.device)
         t = self.target
         ba = (np.asarray(t.beam_angles) if t.beam_angles is not None
@@ -183,6 +201,8 @@ class TransferEngine:
         self._fused = False
         self._last_origin = None
         self._last_sources = ()
+        # the oracle catmesh frame's meshes (CategoryMesh), or None
+        self._last_mesh = None
 
     def _tensor(self, a):
         return (None if a is None else
@@ -555,6 +575,175 @@ class TransferEngine:
         self._materialised(state, origin, self._mesh_sources(ris))
         return vs, ris[0]
 
+    # ----------------------------------------------------------- catmesh
+    @contextlib.contextmanager
+    def _stage(self, name: str):
+        """Add the wall time of the enclosed stage to ``self.spans[name]``,
+        the device synchronised at both ends; without ``spans`` it does
+        nothing."""
+        spans = self.spans
+        if spans is None:
+            yield
+            return
+        sync = (torch.cuda.synchronize if self.device.type == "cuda"
+                else lambda: None)
+        sync()
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            sync()
+            spans[name] = spans.get(name, 0.0) + time.perf_counter() - t0
+
+    def catmesh(self, window: ScanWindow
+                ) -> tuple[VirtualScan, P.RangeImage]:
+        """Category-mesh adaption with its range image.
+
+        ``catmesh_engine="splat"`` runs the mergemesh body. ``"oracle"``
+        extracts one iso-surface per semantic category and casts the
+        target's rays against them: the merged image at the target's fov
+        is integrated in the frame (reset, weight not written; the
+        geometry table under fixed bounds); for each category ``c`` the
+        field ``tsdf where label == c else +1`` is marched, so adjacent
+        categories never share a triangle; the meshes, deduplicated, are
+        raycast nearest-hit (``ops/triangles.raycast_mesh``), the hit's
+        label from the triangle's vertex 0 and its remission the mean of
+        its 3 vertices. An empty mesh gives the all-zero scan.
+
+        With ``spans`` a dict, the oracle adds to it the wall time (s) of
+        each stage, the device synchronised around each: projection,
+        integrate, cells (or volume: the whole state fetched), march[c] of
+        each category, dedupe, upload, raycast, attributes.
+        """
+        if self.catmesh_engine == "splat":
+            vs, ri = self.mergemesh(window)
+            return vs._replace(adaption="catmesh"), ri
+        t = self.target
+        with self._stage("projection"):
+            ri, origin, active, _, _ = self._merged_image(window)
+        with self._stage("integrate"):
+            geom = self._ensure_geom(t.fov_up, t.fov_down, self.source.H)
+            state = self._integrate(self._take_state(), ri, t.fov_up,
+                                    t.fov_down, origin, active, reset=True,
+                                    geom=geom, write_weight=False)
+        self._materialised(state, origin, [(ri, t.fov_up, t.fov_down)])
+        mesh = self._category_mesh(state, origin)
+        self._last_mesh = mesh
+        return self._cast_mesh(mesh), ri
+
+    def _category_mesh(self, state, origin) -> CategoryMesh | None:
+        """The per-category meshes of ``state`` in world coordinates (None
+        where no category has a surface): from the seam-aware surface
+        cells (``ops/surface``, on the volume's device) from 2**24 voxels
+        on, else from the whole volume on the host. A vertex's remission
+        is its rounded voxel's (on the cells path, that of its own cell's
+        corner)."""
+        origin_np = np.asarray(origin, np.float32)
+        vox = self.vol_spec.voxel_size
+        verts_l, faces_l, lbl_l, rem_l = [], [], [], []
+        v_off = 0
+
+        def add(c, tri, rem_of):
+            nonlocal v_off
+            with self._stage("dedupe"):
+                verts, faces, vsoup = dedupe_mesh(tri, return_index=True)
+                rem = rem_of(verts, vsoup)
+            verts_l.append(verts * vox + origin_np)
+            faces_l.append(faces + v_off)
+            lbl_l.append(np.full(verts.shape[0], int(c), np.int32))
+            rem_l.append(rem)
+            v_off += verts.shape[0]
+
+        if self._use_cells_extract("auto"):
+            # the seam-aware candidate set is a superset of every
+            # per-category field's crossing cells, so each category's
+            # field comes from the K cells' corner labels alone
+            with self._stage("cells"):
+                cells = extract_surface_cells(
+                    state.tsdf, state.label, state.rem, seams=True,
+                    want_labels=True, want_rems=True)
+            cats = (np.unique(cells.labels[cells.vals < 0])
+                    if cells.idx.shape[0] else np.zeros((0,), np.int32))
+            for c in cats[cats > 0]:
+                with self._stage(f"march[{int(c)}]"):
+                    fv = np.where(cells.labels == int(c), cells.vals,
+                                  np.float32(1.0))
+                    sub = np.flatnonzero((fv.min(axis=1) < 0)
+                                         & (fv.max(axis=1) >= 0))
+                    tri, tcell = marching_tetrahedra_cells(
+                        cells.idx[sub], fv[sub], 0.0, return_cells=True)
+                if tri.shape[0] == 0:
+                    continue
+
+                def rem_of(verts, vsoup, sub=sub, tcell=tcell):
+                    # rounded vertex -> a corner of its OWN cell
+                    g = np.round(verts).astype(np.int64)
+                    rows = sub[tcell[vsoup // 3]]
+                    local = np.clip(g - cells.idx[rows], 0, 1)
+                    corner = local[:, 0] + 2 * local[:, 1] + 4 * local[:, 2]
+                    return cells.rems[rows, corner]
+
+                add(c, tri, rem_of)
+        else:
+            with self._stage("volume"):
+                tsdf = state.tsdf.cpu().to(torch.float32).numpy()
+                label_vol = state.label.cpu().to(torch.int32).numpy()
+                rem_vol = state.rem.cpu().to(torch.float32).numpy()
+            for c in np.unique(label_vol[label_vol > 0]):
+                with self._stage(f"march[{int(c)}]"):
+                    # the category's own signed field: other categories'
+                    # voxels read as +1 (outside), so the zero crossing
+                    # wraps only this category's band
+                    field = np.where(label_vol == int(c), tsdf,
+                                     np.float32(1.0))
+                    tri = marching_tetrahedra(field, 0.0)
+                if tri.shape[0] == 0:
+                    continue
+
+                def rem_of(verts, vsoup):
+                    gi = np.clip(np.round(verts).astype(np.int64), 0,
+                                 np.asarray(tsdf.shape) - 1)
+                    return rem_vol[gi[:, 0], gi[:, 1], gi[:, 2]]
+
+                add(c, tri, rem_of)
+        if not verts_l:
+            return None
+        return CategoryMesh(np.concatenate(verts_l), np.concatenate(faces_l),
+                            np.concatenate(lbl_l),
+                            np.concatenate(rem_l).astype(np.float32))
+
+    def _cast_mesh(self, mesh: CategoryMesh | None) -> VirtualScan:
+        """The target's rays from the sensor (origin 0) against ``mesh`` on
+        the engine's device: range t on a hit, endpoints ray * t; range,
+        label and remission 0 on a miss."""
+        tH, tW = self.target.H, self.target.W
+        dev = self.device
+        if mesh is None:
+            zero = torch.zeros((tH, tW), dtype=torch.float32, device=dev)
+            return VirtualScan(
+                range=zero, label=zero.to(torch.int32), remission=zero,
+                points=torch.zeros((tH, tW, 3), dtype=torch.float32,
+                                   device=dev),
+                mask=zero.to(torch.bool), adaption="catmesh")
+        with self._stage("upload"):
+            verts = torch.from_numpy(mesh.verts).to(dev)
+            faces = torch.from_numpy(mesh.faces).to(dev).to(torch.int64)
+            v_lbl = torch.from_numpy(mesh.labels).to(dev)
+            v_rem = torch.from_numpy(mesh.rems).to(dev)
+            tris = verts[faces]                              # (T,3,3)
+        with self._stage("raycast"):
+            hits = raycast_mesh(
+                torch.zeros(3, dtype=torch.float32, device=dev), self.rays,
+                tris)
+        with self._stage("attributes"):
+            lbl, rem = mesh_hit_attributes(hits, faces, v_lbl, v_rem)
+            mask = hits.hit.reshape(tH, tW)
+            rng = torch.where(mask, hits.t.reshape(tH, tW), 0.0)
+            ends = self.rays.reshape(tH, tW, 3) * rng[..., None]
+        return VirtualScan(range=rng, label=lbl.reshape(tH, tW),
+                           remission=rem.reshape(tH, tW), points=ends,
+                           mask=mask, adaption="catmesh")
+
     # ---------------------------------------------------------- dispatch
     def _defer_active(self) -> bool:
         """The volume is deferred only where the synthesis cannot read it:
@@ -571,18 +760,27 @@ class TransferEngine:
         if adaption == "mesh":
             return self.mesh(window)
         if adaption == "catmesh":
-            vs, ri = self.mergemesh(window)
-            return vs._replace(adaption="catmesh"), ri
+            return self.catmesh(window)
         raise ValueError(f"adaption {adaption!r}")
+
+    @property
+    def _mm_family_fast(self) -> bool:
+        """Adaptions served by the mergemesh fast body: mergemesh itself,
+        and catmesh on its splat engine (the oracle integrates the volume
+        and casts its meshes in ``transfer``)."""
+        return (self.cfg.adaption == "mergemesh"
+                or (self.cfg.adaption == "catmesh"
+                    and self.catmesh_engine == "splat"))
 
     def transfer_fast(self, window: ScanWindow) -> VirtualScan:
         """Transfer one window without its range image; for mergemesh and
-        catmesh the volume stays deferred (see :meth:`fused_state`). A
-        denser target takes the classic deferred body (``transfer``),
-        whose range image the chords are drawn in; raymarch synthesis
-        takes ``transfer``, which integrates the volume it marches."""
-        if (self.cfg.adaption not in ("mergemesh", "catmesh")
-                or self._interp_active or self.synthesis != "splat"):
+        catmesh on its splat engine the volume stays deferred (see
+        :meth:`fused_state`). A denser target takes the classic deferred
+        body (``transfer``), whose range image the chords are drawn in;
+        raymarch synthesis and catmesh's oracle engine take ``transfer``,
+        which integrates the volume they read."""
+        if (not self._mm_family_fast or self._interp_active
+                or self.synthesis != "splat"):
             return self.transfer(window)[0]
         (rng, lbl, rem, ends, mask), origin = \
             self._mergemesh_core_fast(window)

@@ -164,6 +164,23 @@ def pack_occupancy(cells) -> Bound:
     return bound(cx * cy * cz + 4 * words)
 
 
+#: float32 operations of one ray/triangle test of
+#: ``ops/triangles._mt_chunk``: the two cross products (6 products and 3 differences
+#: each), the four dot products (3 products and 2 sums each), 1/det,
+#: o - v0 (3), the three products by 1/det and u + v; the comparisons are
+#: not counted
+MT_FLOPS = 2 * 9 + 4 * 5 + 1 + 3 + 3 + 1
+
+
+def mesh_raycast(rays: int, tris: int, origin_rows: int = 1) -> Bound:
+    """Row C: the T triangles read (36 B each), the R rays and the
+    ``origin_rows`` origins (1 shared, or one a ray; 12 B each) read, t
+    and the triangle index written (8 B a ray); R x T tests of
+    :data:`MT_FLOPS` operations (the function tests every pair)."""
+    return bound(36 * tris + 12 * (rays + origin_rows) + 8 * rays,
+                 rays * tris * MT_FLOPS)
+
+
 def conv_flops(model, x) -> int:
     """Operations (a multiply and an add each) of every ``nn.Conv2d`` in
     one forward of ``model`` on ``x``, counted from each layer's weight

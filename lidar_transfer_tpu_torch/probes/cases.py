@@ -1,7 +1,7 @@
 """Every case of the TSDF integrate, its chain, the geometry table, the
 confusion counts and the z-buffer, timed on the card beside its bound.
 
-    python -m lidar_transfer_tpu_torch.probes.cases [volume|small|frame|march ...]
+    python -m lidar_transfer_tpu_torch.probes.cases [volume|small|frame|march|mesh ...]
                                                     [--only TEXT]
                                                     [--out FILE.json]
 
@@ -36,6 +36,10 @@ padded points):
           each operation (the march, and the packing of the
           occupancy into bits), the samples a ray (mean, p99, max) and
           the cycles a sample at the card's highest SM clock;
+  mesh    row C, the mesh raycast kernel, on the first scan's oracle
+          catmesh frame (``TransferEngine(catmesh_engine="oracle")``,
+          HDL64 -> HDL32, float32 state): its 65,536 HDL32 rays from the
+          sensor against the frame's per-category meshes;
   probes  rows 4 to 7 at the probe scripts' 1024x1024x256: the parts
           kernel in the script's rows (each variant with three outputs at
           BX 2, full with one output, full at BX 4 and 8); the ablate
@@ -64,7 +68,7 @@ import json
 import os
 import sys
 
-GROUPS = ("volume", "small", "frame", "probes", "march")
+GROUPS = ("volume", "small", "frame", "probes", "march", "mesh")
 DIMS = (2048, 2048, 208)
 ODD_DIMS = (2048, 2048, 206)
 SCALAR_DIMS = (2047, 2047, 206)
@@ -149,6 +153,8 @@ def measure(groups=GROUPS, only: str = "") -> list[dict]:
         _probe_cases(case, dev)
     if "march" in groups:
         _march_cases(case, scans[0], dev, np.linalg.inv(poses[0]) @ poses[1])
+    if "mesh" in groups:
+        _mesh_cases(case, scans[0], dev)
     return rows
 
 
@@ -459,6 +465,43 @@ def _march_cases(case, scan, dev, pose_next) -> None:
              cycles_a_sample=(march_ms * 1e-3 * clock * 1e6
                               / samples["max"] if samples["max"] else None))
     del eng
+    torch.cuda.empty_cache()
+
+
+def _mesh_cases(case, scan, dev) -> None:
+    """Row C on the first scan's oracle catmesh frame at the reference
+    point: the frame's meshes as (T, 3, 3) triangles on the card, the
+    HDL32 rays from the sensor."""
+    import torch
+
+    from lidar_transfer_tpu_torch.config import (HDL32, HDL64,
+                                                 TransferConfig)
+    from lidar_transfer_tpu_torch.ops import triangles as TT
+    from lidar_transfer_tpu_torch.pipeline import deform as TD
+    from lidar_transfer_tpu_torch.pipeline.multiscan import ScanWindow
+    from lidar_transfer_tpu_torch.probes import bounds
+
+    cfg = TransferConfig(adaption="catmesh", voxel_size=VOXEL,
+                         voxel_bounds=((-50.0, 50.0), (-50.0, 50.0),
+                                       (-5.0, 5.0)))
+    eng = TD.TransferEngine(HDL64, HDL32, cfg, fixed_bounds=True,
+                            device=dev, catmesh_engine="oracle")
+    pts, rem, lbl, valid = scan
+    eng.transfer_fast(ScanWindow(
+        points=pts[None], remissions=rem[None], labels=lbl[None],
+        valid=valid[None], rel_pose=torch.eye(4, device=dev)[None]))
+    mesh, rays = eng._last_mesh, eng.rays
+    tris = torch.from_numpy(mesh.verts).to(dev)[torch.from_numpy(
+        mesh.faces).to(dev).to(torch.int64)].contiguous()
+    del eng
+    torch.cuda.empty_cache()
+    origin = torch.zeros(3, device=dev)
+    T = tris.shape[0]
+    case(f"mesh raycast 65536 HDL32 rays, oracle frame T={T}",
+         lambda: TT.raycast_mesh(origin, rays, tris),
+         bounds.mesh_raycast(rays.shape[0], T, 1), 1, 1,
+         note=f"{T} triangles", triangles=T)
+    del tris
     torch.cuda.empty_cache()
 
 

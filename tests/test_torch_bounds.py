@@ -151,3 +151,21 @@ def test_conv_flops_count_every_convolution(W):
     b = bounds.train_step(got)
     assert b.flops == 3 * got and b.by == "operations"
     assert b.ms == pytest.approx(3 * got / 989e12 * 1e3)
+
+
+@pytest.mark.parametrize("origin_rows", [1, 65536])
+def test_mesh_raycast_counts_every_test(origin_rows):
+    """Row C: 36 B a triangle, 12 B a ray and an origin row read, 8 B a ray
+    written; 46 float32 operations for each ray/triangle pair (the two
+    cross products 9 each, four dots 5 each, 1/det, o - v0, the three
+    products by 1/det and u + v), so the oracle frame's mesh is bound by
+    its operations."""
+    assert bounds.MT_FLOPS == 46
+    R, T = 65536, 6_312_231
+    b = bounds.mesh_raycast(R, T, origin_rows)
+    assert b.bytes == 36 * T + 12 * (R + origin_rows) + 8 * R
+    assert b.flops == 46 * R * T
+    assert b.by == "operations"
+    assert b.ms == pytest.approx(284.02, abs=0.01)
+    small = bounds.mesh_raycast(2, 1, origin_rows=1)
+    assert small.by == "bytes" and small.bytes == 36 + 12 * 3 + 16

@@ -23,6 +23,7 @@ from lidar_transfer_tpu_torch.datasets import synthetic
 from lidar_transfer_tpu_torch.metrics import confusion as TF
 from lidar_transfer_tpu_torch.ops import projection as TP
 from lidar_transfer_tpu_torch.ops import tsdf as TS
+from lidar_transfer_tpu_torch.ops.triangles import raycast_mesh
 from lidar_transfer_tpu_torch.ops.tsdf_cuda import (integrate_chain_cuda,
                                                     integrate_cuda,
                                                     precompute_geometry_cuda)
@@ -66,10 +67,10 @@ def test_imports_leave_jax_out():
 def test_build_needs_no_nvcc_until_a_launch(tmp_path, monkeypatch):
     """_build imports without nvcc; a build without nvcc raises."""
     names = sorted(p.name for p in _build.sources())
-    assert names == ["confusion.cu", "errors.cu", "probe_ablate.cu",
-                     "probe_parts.cu", "probe_runs.cuh", "probe_write.cu",
-                     "raymarch.cu", "tsdf_common.cuh", "tsdf_geometry.cu",
-                     "tsdf_integrate.cu", "zbuffer.cu"]
+    assert names == ["confusion.cu", "errors.cu", "mesh_raycast.cu",
+                     "probe_ablate.cu", "probe_parts.cu", "probe_runs.cuh",
+                     "probe_write.cu", "raymarch.cu", "tsdf_common.cuh",
+                     "tsdf_geometry.cu", "tsdf_integrate.cu", "zbuffer.cu"]
     assert _build.library_path().name.startswith("_ltkernels-")
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
     monkeypatch.setenv("PATH", str(tmp_path))
@@ -94,7 +95,8 @@ def _small_window(spec, nscans=1):
 def test_cpu_calls_launch_no_kernel(small_spec):
     """CPU tensors take the plain versions: every launch count stays 0,
     on the mergemesh path, on the mesh path with its chain and geometry
-    table, and on the raymarch path."""
+    table, on the raymarch path, and on catmesh's oracle engine with its
+    mesh raycast."""
     _build.reset_launch_counts()
     eng = TD.TransferEngine(small_spec, small_spec, CFG, fixed_bounds=True,
                             device="cpu")
@@ -116,11 +118,18 @@ def test_cpu_calls_launch_no_kernel(small_spec):
                               fixed_bounds=True, device="cpu",
                               synthesis="raymarch", compact_volume=True)
     assert bool(march.transfer_fast(_small_window(small_spec)).mask.any())
+    oracle = TD.TransferEngine(
+        small_spec, small_spec,
+        TransferConfig(adaption="catmesh", voxel_size=CFG.voxel_size,
+                       voxel_bounds=CFG.voxel_bounds),
+        fixed_bounds=True, device="cpu", catmesh_engine="oracle")
+    assert bool(oracle.transfer_fast(_small_window(small_spec)).mask.any())
+    assert oracle._last_mesh is not None
     assert _build.launch_counts() == {
         "zbuffer": 0, "confusion": 0, "tsdf_integrate": 0,
         "tsdf_integrate_chain": 0, "tsdf_geometry": 0, "probe_parts": 0,
         "probe_ablate": 0, "probe_write": 0, "raymarch": 0,
-        "raymarch_pack": 0}
+        "raymarch_pack": 0, "mesh_raycast": 0}
 
 
 def test_extra_nvcc_flags_name_another_library(monkeypatch):
@@ -140,11 +149,11 @@ def test_extra_nvcc_flags_name_another_library(monkeypatch):
 
 @pytest.mark.parametrize("case", ["raymarch", "catmesh_oracle"])
 def test_engine_refuses_unported(case):
-    """Catmesh's oracle engine raises NotImplementedError instead of
-    routing elsewhere; raymarch synthesis, ported since, constructs with
-    the target's rays, and a synthesis the engine does not know raises
-    ValueError; the cp and catmesh adaptions and a denser target
-    construct."""
+    """Nothing the engine offers is refused any more: raymarch synthesis
+    constructs with the target's rays, and catmesh's oracle engine
+    constructs (both ported since); a synthesis or a catmesh engine the
+    engine does not know raises ValueError; the cp and catmesh adaptions
+    and a denser target construct."""
     if case == "raymarch":
         eng = TD.TransferEngine(HDL64, HDL32, CFG, device="cpu",
                                 synthesis="raymarch")
@@ -153,9 +162,12 @@ def test_engine_refuses_unported(case):
             TD.TransferEngine(HDL64, HDL32, CFG, device="cpu",
                               synthesis="mesh")
     else:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        eng = TD.TransferEngine(HDL64, HDL32, TransferConfig(
+            adaption="catmesh"), device="cpu", catmesh_engine="oracle")
+        assert eng.catmesh_engine == "oracle" and not eng._mm_family_fast
+        with pytest.raises(ValueError, match="catmesh_engine"):
             TD.TransferEngine(HDL64, HDL32, TransferConfig(
-                adaption="catmesh"), device="cpu", catmesh_engine="oracle")
+                adaption="catmesh"), device="cpu", catmesh_engine="bvh")
     dense = SensorSpec(name="dense", beams=128, fov_up=3.0, fov_down=-25.0,
                        angle_res_hor=360.0 / 2048.0)
     for adaption, target in (("cp", HDL32), ("catmesh", HDL32),
@@ -186,6 +198,10 @@ def test_wrappers_refuse_other_devices():
                              stack, fov_up_deg=3.0, fov_down_deg=-25.0)
     with pytest.raises(ValueError):
         precompute_geometry_cuda(spec, 3.0, -25.0, 2, device=meta)
+    with pytest.raises(ValueError):
+        raycast_mesh(torch.zeros(3, device=meta),
+                     torch.zeros((4, 3), device=meta),
+                     torch.zeros((2, 3, 3), device=meta))
 
 
 def test_chip_smoke_imports_only_the_port():

@@ -20,12 +20,14 @@ import pytest
 from lidar_transfer_tpu import config as JC
 from lidar_transfer_tpu.datasets import kitti as JK
 from lidar_transfer_tpu.datasets import synthetic as JSY
+from lidar_transfer_tpu.ops import marching as JMA
 from lidar_transfer_tpu.utils import plyio as JPLY
 from lidar_transfer_tpu.utils import prefetch as JPF
 from lidar_transfer_tpu.utils import runtime as JRT
 from lidar_transfer_tpu_torch import config as TC
 from lidar_transfer_tpu_torch.datasets import kitti as TK
 from lidar_transfer_tpu_torch.datasets import synthetic as TSY
+from lidar_transfer_tpu_torch.ops import marching as TMA
 from lidar_transfer_tpu_torch.utils import plyio as TPLY
 from lidar_transfer_tpu_torch.utils import prefetch as TPF
 from lidar_transfer_tpu_torch.utils import runtime as TRT
@@ -257,3 +259,32 @@ def test_prefetcher_in_order_and_errors():
         pf = mod.Prefetcher(load, range(100), depth=2)
         assert next(pf) == (0, 0)
         pf.close()
+
+
+def test_native_source_is_the_original():
+    """The port's ``native/raytracer.cpp`` is the JAX package's byte for
+    byte; the port keeps no prebuilt library beside it."""
+    src = os.path.join(REPO, "lidar_transfer_tpu", "native", "raytracer.cpp")
+    copy = os.path.join(PORT, "native", "raytracer.cpp")
+    with open(src, "rb") as a, open(copy, "rb") as b:
+        assert a.read() == b.read()
+    assert not [n for n in os.listdir(os.path.join(PORT, "native"))
+                if n.endswith(".so")]
+
+
+@pytest.mark.parametrize("return_index", [False, True])
+def test_dedupe_mesh_equal(return_index):
+    """``ops/marching.dedupe_mesh`` of both packages on one soup with
+    shared vertices (and vertices that differ below the rounding):
+    vertices, faces and soup indices equal."""
+    rng = np.random.default_rng(4)
+    pool = rng.normal(size=(60, 3)).astype(np.float32)
+    tri = pool[rng.integers(0, 60, (200, 3))]
+    tri[::7, 0] += np.float32(1e-7)
+    a = JMA.dedupe_mesh(tri, return_index=return_index)
+    b = TMA.dedupe_mesh(tri, return_index=return_index)
+    assert len(a) == len(b) == (3 if return_index else 2)
+    assert a[0].shape[0] < 100       # of 600 soup vertices
+    for x, y in zip(a, b):
+        assert x.dtype == y.dtype
+        np.testing.assert_array_equal(x, y)
