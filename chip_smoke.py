@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-1. Builds the eleven CUDA kernels from ``lidar_transfer_tpu_torch/csrc`` (one
+1. Builds the sixteen CUDA kernels from ``lidar_transfer_tpu_torch/csrc`` (one
    nvcc per source, in parallel) and holds each against its plain PyTorch
    version on the card: the z-buffer bit-exact (without a workspace, and
    with one workspace through a sequence of image sizes and back, N = 0,
@@ -37,11 +37,16 @@
    and a rolling sensor's, fine steps of 0.5 and 2 voxels, max_steps cut
    at 90 and at K - 1, K and K + 1 past a ray's sixth batch of K samples,
    rays that start inside negative space; rays ending at t_far after a
-   sample count K does not divide counted); the mesh raycast kernel (row
-   C) against ``raycast_mesh_plain`` in 6 cases, bit for bit on every ray
-   (soups of 1, 512 and 5,003 triangles and exact copies that tie, 65,613
-   rays, a shared and (R, 3) origins; an empty mesh launches nothing)
-   (``kernel_checks``).
+   sample count K does not divide counted); row C, the mesh raycast (its
+   BVH built by four kernels, then the traversal kernel), against
+   ``raycast_mesh_plain``, the dense sweep, in 8 cases, bit for bit on
+   every ray (soups of 1, 512 and 5,003 triangles and exact copies that
+   tie, 65,613 rays, a shared and (R, 3) origins; one triangle alone; a
+   heightfield with rays
+   through its vertices and shared edges and along the six axes), the
+   card's build equal to ``build_bvh_plain`` and the dense kernel of the
+   parent design equal to ``raycast_mesh_plain`` in each; an empty mesh
+   launches nothing (``kernel_checks``).
 2. Drives each path at the reference operating point (HDL64 64x2048
    source, voxel 0.05 m, bounds +-50/+-50/+-5 m, fixed bounds), with the
    launch counts set to 0 just before it and read just after:
@@ -59,8 +64,8 @@
    - catmesh's oracle engine: ``TransferEngine(catmesh_engine="oracle")``
      HDL64 -> HDL32, three frames of scan 0 through ``transfer_fast``
      (the integrate, the seam-aware surface cells, host marching per
-     category, ``dedupe_mesh``, the mesh raycast kernel once a frame),
-     each stage timed;
+     category, ``dedupe_mesh``, row C's four build kernels and its
+     traversal once a frame, the dense kernel never), each stage timed;
    - upsampling, HDL64 -> HDL64x2 (128 beams, the same fov): the CLI per
      frame and with --stream 4;
    - raymarch: ``TransferEngine(synthesis="raymarch")``, mergemesh, compact
@@ -88,11 +93,13 @@
    the plain chain, a non-empty PLY, a cp identity transfer equal to the
    source projection bit for bit, catmesh's files and scan equal to
    mergemesh's bit for bit; the oracle's three frames equal, row C against
-   ``raycast_mesh_plain`` on two full rows of the frame's rays against its
-   whole mesh (bit for bit) and against the port's native BVH on all
-   65,536 rays (hit masks and labels within the JAX engine's seam budget
-   of 0.7 %, the attributes equal where both take one triangle), the
-   frame beside the splat engine's; the march kernel against ``raycast_plain`` on
+   the dense kernel on all 65,536 rays of the frame against its whole
+   mesh and against ``raycast_mesh_plain`` and ``raycast_mesh_bvh_plain``
+   on two full rows (bit for bit), the card's BVH of the frame equal to
+   ``build_bvh_plain``'s, and row C against the port's native BVH on all
+   rays (hit masks and labels within the JAX engine's seam budget of
+   0.7 %, the attributes equal where both take one triangle), the frame
+   beside the splat engine's; the march kernel against ``raycast_plain`` on
    the raymarch frame's 2048x2048x208 volume and 65,536 rays, and on the
    rolling raymarch engine's (R, 3)-origin march, equal on every ray, the
    raymarch frame beside the splat frame (both-hit share, range
@@ -114,10 +121,13 @@
    cell indices and ``bincount``; ``fill_`` for the writes: timed here,
    called by nothing in the port), beside its bound from
    ``probes/bounds.py``; every case of the integrate, its chain and the
-   z-buffer (``probes/cases.py``); row C's device ms (CUDA events around
-   the launch, median of 3) beside its bound on the oracle frame's mesh,
-   and the frame's split into stages (median of 3); an empty kernel
-   launch; transfer_fast
+   z-buffer (``probes/cases.py``); row C on the oracle frame's mesh split
+   into its stages (keys, ``torch.sort``, hierarchy, refit, reorder,
+   traversal; CUDA events between them, median of 3) beside their bounds,
+   its total beside the bytes bound and the dense kernel's time, the
+   triangles tested and nodes read a ray on two rows, the peak memory of
+   a call, and the frame's split into stages (median of 3); an empty
+   kernel launch; transfer_fast
    per frame of every adaption and rolling engine, a darknet53 train
    step's median ms, peak memory and idle share and an inference's ms,
    the march kernel's
@@ -695,60 +705,145 @@ def _check_raymarch_kernel(torch, kernels) -> None:
         replaces="lidar_transfer_tpu/ops/raycast.py:234", max_abs_err=worst)
 
 
-def _check_mesh_raycast_kernel(torch, kernels) -> None:
-    """Phase 1 for row C, the mesh raycast kernel, against
-    ``raycast_mesh_plain`` on the card, bit for bit (t, triangle index and
-    hit on every ray): random soups of 1, 512 (one tile) and 5,003
-    triangles (a ragged last tile) followed by exact copies of every 7th
-    triangle (a tie in t, which the lower index keeps), against 65,613 rays
-    (a ragged last block), from a shared origin and from (R, 3) origins;
-    an empty mesh misses everywhere without a launch."""
-    from lidar_transfer_tpu_torch import _build
-    from lidar_transfer_tpu_torch.ops import triangles as TT
+#: the launch keys of row C on the path: its four build kernels and the
+#: traversal, once each a call of ``raycast_mesh`` on the card
+MESH_KEYS = ("mesh_bvh_keys", "mesh_bvh_hierarchy", "mesh_bvh_refit",
+             "mesh_bvh_reorder", "mesh_raycast")
 
-    dev = torch.device("cuda")
-    rng = np.random.default_rng(5)
+
+def _same_bvh(torch, got, ref) -> bool:
+    """Two BVHs are equal: every node record, parent, leaf's triangle and
+    row, key and the height."""
+    return all(torch.equal(a, b) for a, b in zip(got, ref))
+
+
+def _mesh_cases(torch, dev, rng):
+    """Row C's cases on the card: -> [(name, origins, dirs, triangles,
+    index of the first copy or None)]. Random soups of 1, 512 (one tile
+    of the dense kernel) and 5,003 triangles (a ragged last tile) followed
+    by exact copies of every 7th triangle (a tie in t, which the lower
+    index keeps), against 65,613 rays (a ragged last block), from a shared
+    origin and from (R, 3) origins; one triangle alone (the root a leaf);
+    a heightfield of 64 x 64 cells of two triangles with the rays aimed at
+    its vertices and at the midpoints of its x edges and of its cells'
+    diagonals (shared by two triangles), and the six axis directions, from
+    a shared origin above a vertex."""
     R = 65536 + 77
     d = rng.normal(size=(R, 3)).astype(np.float32)
     dirs = torch.from_numpy(d / np.linalg.norm(d, axis=1,
                                                keepdims=True)).to(dev)
     origins = (torch.zeros(3, device=dev), torch.from_numpy(
         rng.uniform(-1, 1, (R, 3)).astype(np.float32)).to(dev))
-    n, ties = 0, 0
+    cases = []
     for T in (1, 512, 5003):
         c = rng.uniform(-8, 8, (T, 3)).astype(np.float32)
         tri = c[:, None, :] + rng.normal(0, 0.6, (T, 3, 3)).astype(
             np.float32)
+        if T == 512:   # one triangle alone: the root is a leaf
+            cases.append(("one triangle", origins[0], dirs,
+                          torch.from_numpy(tri[:1]).to(dev), None))
         tri = torch.from_numpy(np.concatenate([tri, tri[::7]])).to(dev)
         for o in origins:
-            before = _build.launch_counts()["mesh_raycast"]
-            got = TT.raycast_mesh(o, dirs, tri)
-            ref = TT.raycast_mesh_plain(o, dirs, tri)
-            torch.cuda.synchronize()
-            check(_build.launch_counts()["mesh_raycast"] == before + 1,
-                  "raycast_mesh on the card did not launch row C once")
-            same = all(torch.equal(a, b) for a, b in zip(got, ref))
-            hits = int(ref.hit.sum())
-            print(f"mesh_raycast T={tri.shape[0]} R={R} origin "
-                  f"{tuple(o.shape)}: {hits} hits, t mismatches "
-                  f"{int((got.t != ref.t).sum())}, tri mismatches "
-                  f"{int((got.tri != ref.tri).sum())}")
-            check(same, f"mesh_raycast T={tri.shape[0]}: kernel != plain")
-            check(T == 1 or hits > R // 20, "mesh_raycast: too few hits")
-            ties += int((ref.tri >= T).sum())
-            n += 1
-    check(ties == 0, "mesh_raycast: a later copy won a tie")
-    before = _build.launch_counts()["mesh_raycast"]
-    empty = TT.raycast_mesh(origins[0], dirs,
+            cases.append((f"soup T={tri.shape[0]} R={R} origin "
+                          f"{tuple(o.shape)}", o, dirs, tri, T))
+    g = np.arange(65, dtype=np.float32) * np.float32(0.25) - np.float32(8)
+    x, y = np.meshgrid(g, g, indexing="ij")
+    z = (np.float32(-2) + np.float32(0.1) * np.sin(x) * np.cos(y)).astype(
+        np.float32)
+    v = np.stack([x, y, z], -1)
+    quad = np.stack([v[:-1, :-1], v[1:, :-1], v[1:, 1:], v[:-1, 1:]], 2)
+    hf = np.concatenate([quad[:, :, [0, 1, 2]], quad[:, :, [0, 2, 3]]],
+                        0).reshape(-1, 3, 3)
+    o = np.array([0.0, 0.0, 0.0], np.float32)
+    targets = np.concatenate([v.reshape(-1, 3), (
+        (v[1:, :] + v[:-1, :]) * np.float32(0.5)).reshape(-1, 3), (
+        (quad[:, :, 0] + quad[:, :, 2]) * np.float32(0.5)).reshape(-1, 3)])
+    hd = targets - o
+    hd = hd / np.linalg.norm(hd, axis=1, keepdims=True)
+    hd = np.concatenate([hd, np.eye(3, dtype=np.float32),
+                         -np.eye(3, dtype=np.float32)]).astype(np.float32)
+    cases.append((f"heightfield T={hf.shape[0]} R={hd.shape[0]}",
+                  torch.from_numpy(o).to(dev), torch.from_numpy(hd).to(dev),
+                  torch.from_numpy(np.ascontiguousarray(hf)).to(dev), None))
+    return cases
+
+
+def _check_mesh_raycast_kernel(torch, kernels) -> None:
+    """Phase 1 for row C against its plain versions on the card, bit for
+    bit (t, triangle index and hit on every ray) in each case of
+    :func:`_mesh_cases`: ``raycast_mesh`` (the BVH built by the four build
+    kernels, the traversal launched once) against ``raycast_mesh_plain``,
+    the dense sweep; the card's build against ``build_bvh_plain`` on the
+    same tensors, equal; the dense kernel against ``raycast_mesh_plain``.
+    An empty mesh misses everywhere without a launch."""
+    from lidar_transfer_tpu_torch import _build
+    from lidar_transfer_tpu_torch.ops import triangles as TT
+    from lidar_transfer_tpu_torch.ops.triangles_cuda import (
+        mesh_raycast_dense_cuda)
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(5)
+    n, later, tied = 0, 0, 0
+    for name, o, dirs, tri, copies in _mesh_cases(torch, dev, rng):
+        before = _build.launch_counts()
+        got = TT.raycast_mesh(o, dirs, tri)
+        torch.cuda.synchronize()
+        launched = _launches_since(before)
+        want = {k: 1 for k in MESH_KEYS
+                if k != "mesh_bvh_hierarchy" or tri.shape[0] > 1}
+        check(launched == want, f"raycast_mesh {name}: launches "
+              f"{launched}, not once each of {sorted(want)}")
+        ref = TT.raycast_mesh_plain(o, dirs, tri)
+        dense = mesh_raycast_dense_cuda(o.contiguous(), dirs, tri)
+        reach = TT.ray_reach(o, dirs)
+        same_build = _same_bvh(torch, TT.build_bvh(tri, reach),
+                               TT.build_bvh_plain(tri, reach))
+        torch.cuda.synchronize()
+        hits = int(ref.hit.sum())
+        print(f"mesh_raycast {name}: {hits} hits; BVH route against the "
+              f"dense sweep: t mismatches {int((got.t != ref.t).sum())}, "
+              f"tri mismatches {int((got.tri != ref.tri).sum())}; card "
+              f"build equal to build_bvh_plain: {same_build}; dense kernel "
+              f"t/tri mismatches {int((dense[0] != ref.t).sum())}/"
+              f"{int((dense[1] != ref.tri).sum())}")
+        check(all(torch.equal(a, b) for a, b in zip(got, ref)),
+              f"mesh_raycast {name}: BVH route != raycast_mesh_plain")
+        check(same_build, f"mesh_raycast {name}: card build != "
+              "build_bvh_plain")
+        check(torch.equal(dense[0], ref.t) and torch.equal(dense[1],
+                                                          ref.tri),
+              f"mesh_raycast {name}: dense kernel != raycast_mesh_plain")
+        check(tri.shape[0] < 4 or hits > dirs.shape[0] // 20,
+              f"mesh_raycast {name}: too few hits")
+        if copies is not None:
+            # a hit on a triangle with a copy is a tie in t; the copy's
+            # higher index must never win it
+            later += int((ref.tri >= copies).sum())
+            tied += int((ref.hit & (ref.tri % 7 == 0)).sum())
+        n += 1
+    check(later == 0 and tied > 0, f"mesh_raycast: {tied} ties, {later} "
+          "won by a later copy")
+    before = _build.launch_counts()
+    empty = TT.raycast_mesh(torch.zeros(3, device=dev),
+                            torch.ones((4, 3), device=dev),
                             torch.zeros((0, 3, 3), device=dev))
     check(not bool(empty.hit.any()) and bool((empty.tri == -1).all())
-          and _build.launch_counts()["mesh_raycast"] == before,
+          and _build.launch_counts() == before,
           "mesh_raycast: an empty mesh hit or launched")
-    print(f"mesh_raycast: {n} cases equal to raycast_mesh_plain on every "
-          "ray, bit for bit (every tie kept by the lower index)")
-    kernels["mesh_raycast"] = dict(
-        route="cuda", source="lidar_transfer_tpu_torch/csrc/mesh_raycast.cu",
-        replaces="lidar_transfer_tpu/ops/triangles.py:57", max_abs_err=0.0)
+    print(f"mesh_raycast: {n} cases, the BVH route and the dense kernel "
+          "equal to raycast_mesh_plain on every ray, bit for bit, and the "
+          "card's build equal to build_bvh_plain")
+    src = "lidar_transfer_tpu_torch/csrc/"
+    for key, source in (("mesh_raycast", "mesh_raycast.cu"),
+                        ("mesh_raycast_dense", "mesh_raycast.cu"),
+                        ("mesh_bvh_keys", "mesh_bvh.cu"),
+                        ("mesh_bvh_hierarchy", "mesh_bvh.cu"),
+                        ("mesh_bvh_refit", "mesh_bvh.cu"),
+                        ("mesh_bvh_reorder", "mesh_bvh.cu")):
+        kernels[key] = dict(
+            route="cuda", source=src + source,
+            replaces="lidar_transfer_tpu/ops/triangles.py:57",
+            max_abs_err=0.0)
 
 
 def _check_integrate_cases(torch, rng) -> float:
@@ -1771,15 +1866,19 @@ def _oracle_path(torch, work, kernels, tag, per_frame):
     """Catmesh's oracle engine at the reference point on the dataset
     ``work/kitti`` (HDL64 -> HDL32, fixed bounds, float32 state): three
     frames of scan 0 through ``transfer_fast``, each stage timed
-    (``TransferEngine.spans``); row C against ``raycast_mesh_plain`` on two
-    full rows of rays against the frame's whole mesh (bit for bit) and
-    against the port's native BVH on all 65,536 rays; row C's device ms
-    beside its bound; the frame against the splat engine's. Returns the
-    launch counts of the path."""
+    (``TransferEngine.spans``), row C's four build kernels and its
+    traversal launched once a frame and the dense kernel never; on the
+    frame's whole mesh, row C against the dense kernel on all 65,536 rays
+    and against ``raycast_mesh_plain`` and ``raycast_mesh_bvh_plain`` on
+    two full rows (bit for bit), the card's build against
+    ``build_bvh_plain`` (equal), and against the port's native BVH on all
+    rays; row C's stages timed beside their bounds and the dense kernel's
+    time; the frame against the splat engine's. Returns the launch counts
+    of the path."""
     from lidar_transfer_tpu_torch import _build, native
     from lidar_transfer_tpu_torch.config import HDL64, SensorSpec
     from lidar_transfer_tpu_torch.ops import triangles as TT
-    from lidar_transfer_tpu_torch.ops.triangles_cuda import mesh_raycast_cuda
+    from lidar_transfer_tpu_torch.ops import triangles_cuda as TC
     from lidar_transfer_tpu_torch.pipeline import deform as TD
     from lidar_transfer_tpu_torch.pipeline.multiscan import load_window
     from lidar_transfer_tpu_torch.probes import bounds
@@ -1806,10 +1905,13 @@ def _oracle_path(torch, work, kernels, tag, per_frame):
     eng.spans = None
     per_frame["oracle"] = {k: v / 3 for k, v in counts.items() if v}
     print(f"launches on the oracle path (3 frames): {counts}")
-    for k in ("zbuffer", "tsdf_integrate", "tsdf_geometry", "mesh_raycast"):
+    for k in ("zbuffer", "tsdf_integrate", "tsdf_geometry"):
         check(counts[k] > 0, f"kernel {k} never launched on the oracle "
               "path")
-    check(counts["mesh_raycast"] == 3, "row C not launched once a frame")
+    for k in MESH_KEYS:
+        check(counts[k] == 3, f"row C's {k} not launched once a frame")
+    check(counts["mesh_raycast_dense"] == 0, "the dense kernel of row C "
+          "launched on the oracle path")
     check(all(_equal_scans(torch, f, frames[0]) for f in frames[1:]),
           "oracle: three frames of one scan differ")
     vs, mesh = frames[0], eng._last_mesh
@@ -1843,7 +1945,7 @@ def _oracle_path(torch, work, kernels, tag, per_frame):
           "oracle frame mostly empty or apart from the splat frame")
     del splat
 
-    # ------ 3. row C on the frame's mesh: plain, native BVH, its timing
+    # ------ 3. row C on the frame's mesh: plain, dense, native BVH, timing
     tris = torch.from_numpy(mesh.verts).to(dev)[
         torch.from_numpy(mesh.faces).to(dev).to(torch.int64)].contiguous()
     origin = torch.zeros(3, device=dev)
@@ -1865,7 +1967,59 @@ def _oracle_path(torch, work, kernels, tag, per_frame):
     check(all(torch.equal(a, b) for a, b in zip(sub, ref)),
           "oracle: row C != raycast_mesh_plain on the frame's mesh")
     check(bool(ref.hit.any()), "oracle: rows 15-16 hit nothing")
+    # the card's build against the plain build, stage by stage, and the
+    # plain traversal of rows 15-16 through the frame's tree
+    reach = TT.ray_reach(origin, rays)
+    built = TT.build_bvh(tris, reach)
+    plain_stage = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        plain_stage[name] = (time.perf_counter() - t) * 1e3
+        return out
+
+    keys, boxes = timed("mesh_bvh_keys", lambda: TT.bvh_keys_plain(
+        tris, TT.scene_scale(tris), reach))
+    keys, leaf = timed("sort", lambda: TT.leaf_order(keys))
+    children, parents = timed("mesh_bvh_hierarchy",
+                              lambda: TT.bvh_hierarchy_plain(keys))
+    nodes, height = timed("mesh_bvh_refit", lambda: TT.bvh_refit_plain(
+        children, boxes[leaf.to(torch.int64)]))
+    plain_bvh = TT.MeshBVH(nodes, parents, leaf, timed(
+        "mesh_bvh_reorder", lambda: TT.bvh_reorder_plain(tris, leaf)),
+        keys, height)
+    same_build = _same_bvh(torch, built, plain_bvh)
+    del keys, boxes, children, parents, nodes, plain_bvh
+    stats = {}
+    trav = timed("mesh_raycast", lambda: TT.raycast_mesh_bvh_plain(
+        origin, rows, built, stats))
+    tests, visits = (stats[k].double().cpu().numpy()
+                     for k in ("tests", "nodes"))
+    per_ray = {name: dict(mean=float(x.mean()),
+                          p99=float(np.percentile(x, 99)), max=int(x.max()))
+               for name, x in (("tests", tests), ("nodes", visits))}
+    print(f"row C's BVH of the frame: height {int(built.height)} (stack "
+          f"{TC.STACK}); the card's build equal to build_bvh_plain: "
+          f"{same_build}; rows 15-16 through it by raycast_mesh_bvh_plain: "
+          f"triangles tested a ray {per_ray['tests']}, internal nodes "
+          f"read a ray {per_ray['nodes']}; plain build stages (ms) "
+          f"{ {k: round(v, 1) for k, v in plain_stage.items()} }")
+    check(same_build, "oracle: the card's build != build_bvh_plain")
+    check(all(torch.equal(a, b) for a, b in zip(trav, ref)),
+          "oracle: raycast_mesh_bvh_plain != raycast_mesh_plain")
+    del built
     full = TT.raycast_mesh(origin, rays, tris)
+    dense = TC.mesh_raycast_dense_cuda(origin, rays, tris)
+    torch.cuda.synchronize()
+    print(f"row C against the dense kernel on all {R} rays: t mismatches "
+          f"{int((full.t != dense[0]).sum())}, tri mismatches "
+          f"{int((full.tri != dense[1]).sum())}, "
+          f"{int(full.hit.sum())} hits")
+    check(torch.equal(full.t, dense[0]) and torch.equal(full.tri, dense[1]),
+          "oracle: row C != the dense kernel on the frame's rays")
     check(torch.equal(full.hit.reshape(vs.mask.shape), vs.mask)
           and torch.equal(torch.where(full.hit, full.t, 0.0).reshape(
               vs.range.shape), vs.range),
@@ -1900,29 +2054,92 @@ def _oracle_path(torch, work, kernels, tag, per_frame):
     check(rng_err <= 1e-4 and bool(
         (vs.remission.reshape(-1).cpu().numpy() == nat.remissions)[
             same].all()), "oracle: the frame's attributes != native's")
+    del full, dense, trav, ref, sub
 
-    # a call of one long kernel: CUDA events around it give its device time
-    dev_ms, k_ms, sub_ms = ([cuda_ms(fn, 1, warmup=0) for _ in range(3)]
-                            for fn in (
-        lambda: mesh_raycast_cuda(origin, rays, tris),
-        lambda: TT.raycast_mesh(origin, rays, tris),
-        lambda: TT.raycast_mesh(origin, rows, tris)))
+    # ------ 4. row C's time: each stage by CUDA events, medians of 3
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    splits = [_bvh_split(torch, tris, origin, rays) for _ in range(3)]
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    med = {k: float(np.median([sp[k] for sp in splits])) for k in splits[0]}
+    total = [cuda_ms(lambda: TT.raycast_mesh(origin, rays, tris), 1,
+                     warmup=0) for _ in range(3)]
+    dense_ms = [cuda_ms(lambda: TC.mesh_raycast_dense_cuda(
+        origin, rays, tris), 1, warmup=0) for _ in range(3)]
+    sub_ms = [cuda_ms(lambda: TT.raycast_mesh(origin, rows, tris), 1,
+                      warmup=0) for _ in range(3)]
+    tot, dn = float(np.median(total)), float(np.median(dense_ms))
     rb = bounds.mesh_raycast(R, T, 1)
-    d = float(np.median(dev_ms))
+    stage_bounds = {"mesh_bvh_keys": bounds.bvh_keys(T),
+                    "sort": bounds.bvh_sort(T),
+                    "mesh_bvh_hierarchy": bounds.bvh_hierarchy(T),
+                    "mesh_bvh_refit": bounds.bvh_refit(T),
+                    "mesh_bvh_reorder": bounds.bvh_reorder(T)}
+    runs = {k: " / ".join(f"{sp[k]:.4f}" for sp in splits) for k in med}
+    print(f"row C on the oracle frame (R = {R}, T = {T}), device ms by "
+          f"CUDA events, median of 3 (the 3 runs): " + "; ".join(
+              f"{k} {med[k]:.4f} ({runs[k]})"
+              + (f" bound {stage_bounds[k].ms:.4f}" if k in stage_bounds
+                 else "") for k in med)
+          + f"; total (raycast_mesh, the stack check's wait included) "
+          f"{tot:.4f} ({' / '.join(f'{x:.4f}' for x in total)}); the dense "
+          f"kernel, the parent design, {dn:.2f} "
+          f"({' / '.join(f'{x:.2f}' for x in dense_ms)}); bound "
+          f"{rb.ms:.4f} by {rb.by} ({rb.bytes} bytes), share "
+          f"{rb.ms / tot:.4f}; dense design's figure "
+          f"{bounds.mesh_raycast_dense(R, T, 1).ms:.2f} ms by operations; "
+          f"rows 15-16 alone {float(np.median(sub_ms)):.4f} ms; peak "
+          f"memory of a call {peak:.0f} MiB above the mesh {tag}")
+    for k, b in stage_bounds.items():
+        if k in kernels:
+            kernels[k].update(ms=med[k], device_ms=med[k],
+                              plain_ms=plain_stage[k], bound_ms=b.ms,
+                              bound_by=b.by, library_ms=None, triangles=T)
     kernels["mesh_raycast"].update(
-        ms=float(np.median(k_ms)), device_ms=d, plain_ms=plain_ms,
-        plain_rays=int(rows.shape[0]),
-        subset_ms=float(np.median(sub_ms)), bound_ms=rb.ms,
-        bound_by=rb.by, library_ms=None, triangles=T, rays=R)
-    print(f"row C: device {' / '.join(f'{x:.2f}' for x in dev_ms)} ms "
-          f"(median {d:.2f}; CUDA events around the launch alone), wrapper "
-          f"median {float(np.median(k_ms)):.2f} ms, bound {rb.ms:.2f} ms "
-          f"by {rb.by} ({rb.flops:.4g} operations, {rb.bytes} bytes), share "
-          f"{rb.ms / d:.3f}, {R * T / d / 1e9:.4f} T tests/s; rows 15-16: "
-          f"kernel {float(np.median(sub_ms)):.2f} ms, plain {plain_ms:.1f} "
-          f"ms; no single PyTorch call computes it {tag}")
-    del tris, full, ref, sub, frames, vs
+        ms=tot, device_ms=med["traversal"],
+        plain_ms=plain_stage["mesh_raycast"], plain_rays=int(rows.shape[0]),
+        subset_ms=float(np.median(sub_ms)), bound_ms=rb.ms, bound_by=rb.by,
+        library_ms=None, triangles=T, rays=R, row_c_ms=tot,
+        row_c_share=rb.ms / tot, per_ray=per_ray, peak_mib=peak)
+    db = bounds.mesh_raycast_dense(R, T, 1)
+    kernels["mesh_raycast_dense"].update(
+        ms=dn, device_ms=dn, plain_ms=plain_ms,
+        plain_rays=int(rows.shape[0]), bound_ms=db.ms, bound_by=db.by,
+        library_ms=None, triangles=T, rays=R)
+    del tris
     return counts
+
+
+def _bvh_split(torch, tris, origin, rays) -> dict:
+    """One call of row C on the card, stage by stage, with a CUDA event
+    between stages: -> ms of the scene's grid and the rays' reach (glue),
+    the keys, the sort, the hierarchy, the refit, the reorder and the
+    traversal."""
+    from lidar_transfer_tpu_torch.ops import triangles as TT
+    from lidar_transfer_tpu_torch.ops import triangles_cuda as TC
+
+    names = ("glue", "mesh_bvh_keys", "sort", "mesh_bvh_hierarchy",
+             "mesh_bvh_refit", "mesh_bvh_reorder", "traversal")
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(8)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    scene, reach = TT.scene_scale(tris), TT.ray_reach(origin, rays)
+    ev[1].record()
+    keys, boxes = TC.bvh_keys_cuda(tris, scene, reach)
+    ev[2].record()
+    keys, leaf = TT.leaf_order(keys)
+    ev[3].record()
+    nodes, parents, counters = TC.bvh_hierarchy_cuda(keys)
+    ev[4].record()
+    height = TC.bvh_refit_cuda(nodes, parents, counters, leaf, boxes)
+    ev[5].record()
+    bvh = TT.MeshBVH(nodes, parents, leaf, TC.bvh_reorder_cuda(tris, leaf),
+                     keys, height)
+    ev[6].record()
+    _, _, flags = TC.mesh_raycast_cuda(origin, rays, bvh)
+    ev[7].record()
+    TC.check_stack(bvh, flags)
+    return {n: ev[k].elapsed_time(ev[k + 1]) for k, n in enumerate(names)}
 
 
 def _upsample_path(torch, work, tag, per_frame):

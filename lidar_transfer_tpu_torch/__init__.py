@@ -24,7 +24,8 @@ kernels live in ``csrc/`` and build with ``nvcc`` at first use
     (``ops/tsdf_cuda.integrate_cuda``, ``integrate_chain_cuda``),
   - the geometry table (``ops/tsdf_cuda.precompute_geometry_cuda``),
   - the raymarch and its occupancy packing (``ops/raycast.raymarch``),
-  - the mesh raycast (``ops/triangles.raycast_mesh``),
+  - the mesh raycast, a BVH built on the card every call and its
+    traversal (``ops/triangles.raycast_mesh``),
   - the probes (``probes/parts.py``, ``probes/ablate.py``,
     ``probes/write.py``).
 

@@ -63,7 +63,12 @@ SIGNATURES = {
                     _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                     _F, _F, _F, _F, _F, _F, _F, _F, _F, _F,
                     _P, _P, _P, _P, _P, _P),
-    "lt_mesh_raycast": (_P, _I, _P, _I, _P, _I, _P, _P, _P),
+    "lt_mesh_bvh_keys": (_P, _I, _P, _P, _P, _P, _P),
+    "lt_mesh_bvh_hierarchy": (_P, _I, _P, _P, _P, _P),
+    "lt_mesh_bvh_refit": (_P, _P, _P, _P, _P, _I, _P, _P),
+    "lt_mesh_bvh_reorder": (_P, _P, _I, _P, _P),
+    "lt_mesh_raycast": (_P, _P, _I, _P, _I, _P, _I, _P, _P, _P, _P),
+    "lt_mesh_raycast_dense": (_P, _I, _P, _I, _P, _I, _P, _P, _P),
     "lt_empty_launch": (_P,),
 }
 
@@ -71,7 +76,10 @@ SIGNATURES = {
 _launches = {"zbuffer": 0, "confusion": 0, "tsdf_integrate": 0,
              "tsdf_integrate_chain": 0, "tsdf_geometry": 0,
              "probe_parts": 0, "probe_ablate": 0, "probe_write": 0,
-             "raymarch": 0, "raymarch_pack": 0, "mesh_raycast": 0}
+             "raymarch": 0, "raymarch_pack": 0, "mesh_bvh_keys": 0,
+             "mesh_bvh_hierarchy": 0, "mesh_bvh_refit": 0,
+             "mesh_bvh_reorder": 0, "mesh_raycast": 0,
+             "mesh_raycast_dense": 0}
 _lib: ctypes.CDLL | None = None
 _lock = threading.Lock()
 

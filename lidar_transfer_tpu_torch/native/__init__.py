@@ -10,9 +10,10 @@ CPU (the library is built with ``-march=native``). It builds from this
 package's source alone and loads no other library. A failed build raises
 with the compiler's output; nothing falls back.
 
-No engine path calls it: ``ops/triangles.raycast_mesh`` runs the mesh
-raycast kernel (``csrc/mesh_raycast.cu``) on the card and its plain
-version on the CPU. The tests and ``chip_smoke.py`` hold those against
+No engine path calls it: ``ops/triangles.raycast_mesh`` builds its BVH
+and runs the traversal kernel (``csrc/mesh_bvh.cu``,
+``csrc/mesh_raycast.cu``) on the card and the dense sweep, its plain
+version, on the CPU. The tests and ``chip_smoke.py`` hold those against
 :func:`trace_mesh`.
 """
 

@@ -173,12 +173,57 @@ MT_FLOPS = 2 * 9 + 4 * 5 + 1 + 3 + 3 + 1
 
 
 def mesh_raycast(rays: int, tris: int, origin_rows: int = 1) -> Bound:
-    """Row C: the T triangles read (36 B each), the R rays and the
-    ``origin_rows`` origins (1 shared, or one a ray; 12 B each) read, t
-    and the triangle index written (8 B a ray); R x T tests of
-    :data:`MT_FLOPS` operations (the function tests every pair)."""
-    return bound(36 * tris + 12 * (rays + origin_rows) + 8 * rays,
+    """Row C, the function, whatever the design: every one of the T
+    triangles read once (36 B each; an unread triangle could be the
+    nearest), the R rays and the ``origin_rows`` origins (1 shared, or one
+    a ray; 12 B each) read, t and the triangle index written (8 B a ray).
+    The bound row C's build and traversal together are held to."""
+    return bound(36 * tris + 12 * (rays + origin_rows) + 8 * rays)
+
+
+def mesh_raycast_dense(rays: int, tris: int, origin_rows: int = 1) -> Bound:
+    """Row C's dense design (``mesh_raycast_dense``, the parent's): the
+    bytes of :func:`mesh_raycast` and R x T tests of :data:`MT_FLOPS`
+    operations (it tests every pair)."""
+    return bound(mesh_raycast(rays, tris, origin_rows).bytes,
                  rays * tris * MT_FLOPS)
+
+
+def bvh_keys(tris: int) -> Bound:
+    """Row C's keys kernel: each triangle read (36 B), the scene's grid and
+    the rays' reach (13 floats), its key (8 B) and padded box (24 B)
+    written."""
+    return bound(36 * tris + 4 * 13 + (8 + 24) * tris)
+
+
+def bvh_sort(tris: int) -> Bound:
+    """``torch.sort`` of the T int64 keys: read once, the sorted keys and
+    their int64 indices written."""
+    return bound(8 * tris + 16 * tris)
+
+
+def bvh_hierarchy(tris: int) -> Bound:
+    """Row C's hierarchy kernel: the T sorted keys read (8 B each); the two
+    child ids (8 B) and the arrival counter (4 B) of each of the T - 1
+    internal nodes and the parent of each of the 2T - 1 nodes (4 B)
+    written."""
+    return bound(8 * tris + 12 * (tris - 1) + 4 * (2 * tris - 1))
+
+
+def bvh_refit(tris: int) -> Bound:
+    """Row C's refit kernel: each leaf's triangle index (4 B) and padded
+    box (24 B), each node's parent (4 B) and each internal node's child ids
+    and counter (12 B) read; each internal node's two child boxes and
+    heights (56 B) and counter (4 B), and the root's height, written."""
+    m = tris - 1
+    return bound(28 * tris + 4 * (2 * tris - 1) + 12 * m + 60 * m + 4)
+
+
+def bvh_reorder(tris: int) -> Bound:
+    """Row C's reorder kernel: each leaf's triangle index (4 B) and its
+    triangle (36 B) read, its row of v0, e1, e2 and the index (48 B)
+    written."""
+    return bound((4 + 36 + 48) * tris)
 
 
 def conv_flops(model, x) -> int:

@@ -36,10 +36,14 @@ padded points):
           each operation (the march, and the packing of the
           occupancy into bits), the samples a ray (mean, p99, max) and
           the cycles a sample at the card's highest SM clock;
-  mesh    row C, the mesh raycast kernel, on the first scan's oracle
-          catmesh frame (``TransferEngine(catmesh_engine="oracle")``,
-          HDL64 -> HDL32, float32 state): its 65,536 HDL32 rays from the
-          sensor against the frame's per-category meshes;
+  mesh    row C on the first scan's oracle catmesh frame
+          (``TransferEngine(catmesh_engine="oracle")``, HDL64 -> HDL32,
+          float32 state): its 65,536 HDL32 rays from the sensor against
+          the frame's per-category meshes; each stage of the BVH's build
+          (the keys, ``torch.sort``, the hierarchy, the refit with the
+          fill of its counters, the reorder), the traversal, the whole
+          route (``raycast_mesh``) and the dense kernel of the parent
+          design;
   probes  rows 4 to 7 at the probe scripts' 1024x1024x256: the parts
           kernel in the script's rows (each variant with three outputs at
           BX 2, full with one output, full at BX 4 and 8); the ablate
@@ -471,12 +475,14 @@ def _march_cases(case, scan, dev, pose_next) -> None:
 def _mesh_cases(case, scan, dev) -> None:
     """Row C on the first scan's oracle catmesh frame at the reference
     point: the frame's meshes as (T, 3, 3) triangles on the card, the
-    HDL32 rays from the sensor."""
+    HDL32 rays from the sensor; each build stage, the traversal, the
+    route and the dense kernel."""
     import torch
 
     from lidar_transfer_tpu_torch.config import (HDL32, HDL64,
                                                  TransferConfig)
     from lidar_transfer_tpu_torch.ops import triangles as TT
+    from lidar_transfer_tpu_torch.ops import triangles_cuda as TC
     from lidar_transfer_tpu_torch.pipeline import deform as TD
     from lidar_transfer_tpu_torch.pipeline.multiscan import ScanWindow
     from lidar_transfer_tpu_torch.probes import bounds
@@ -496,12 +502,40 @@ def _mesh_cases(case, scan, dev) -> None:
     del eng
     torch.cuda.empty_cache()
     origin = torch.zeros(3, device=dev)
-    T = tris.shape[0]
-    case(f"mesh raycast 65536 HDL32 rays, oracle frame T={T}",
+    T, R = tris.shape[0], rays.shape[0]
+    scene, reach = TT.scene_scale(tris), TT.ray_reach(origin, rays)
+    keys, boxes = TC.bvh_keys_cuda(tris, scene, reach)
+    skeys, leaf = TT.leaf_order(keys)
+    nodes, parents, counters = TC.bvh_hierarchy_cuda(skeys)
+    height = TC.bvh_refit_cuda(nodes, parents, counters, leaf, boxes)
+    bvh = TT.MeshBVH(nodes, parents, leaf, TC.bvh_reorder_cuda(tris, leaf),
+                     skeys, height)
+    name = f"oracle frame T={T}"
+    case(f"mesh bvh keys, {name}",
+         lambda: TC.bvh_keys_cuda(tris, scene, reach), bounds.bvh_keys(T),
+         3, 3, triangles=T)
+    case(f"mesh bvh sort (torch.sort), {name}", lambda: TT.leaf_order(keys),
+         bounds.bvh_sort(T), 3, 3, triangles=T)
+    case(f"mesh bvh hierarchy, {name}",
+         lambda: TC.bvh_hierarchy_cuda(skeys), bounds.bvh_hierarchy(T), 3,
+         3, triangles=T)
+    case(f"mesh bvh refit, {name}", lambda: TC.bvh_refit_cuda(
+        nodes, parents, counters.zero_(), leaf, boxes), bounds.bvh_refit(T),
+        3, 3, note="with the fill of its counters", triangles=T)
+    case(f"mesh bvh reorder, {name}",
+         lambda: TC.bvh_reorder_cuda(tris, leaf), bounds.bvh_reorder(T), 3,
+         3, triangles=T)
+    case(f"mesh traversal, 65536 HDL32 rays, {name}",
+         lambda: TC.mesh_raycast_cuda(origin, rays, bvh),
+         bounds.mesh_raycast(R, T, 1), 3, 3,
+         note="beside row C's whole bound", triangles=T)
+    case(f"mesh raycast (build and traversal), 65536 HDL32 rays, {name}",
          lambda: TT.raycast_mesh(origin, rays, tris),
-         bounds.mesh_raycast(rays.shape[0], T, 1), 1, 1,
-         note=f"{T} triangles", triangles=T)
-    del tris
+         bounds.mesh_raycast(R, T, 1), 3, 3, triangles=T)
+    case(f"mesh raycast dense (the parent design), 65536 HDL32 rays, "
+         f"{name}", lambda: TC.mesh_raycast_dense_cuda(origin, rays, tris),
+         bounds.mesh_raycast_dense(R, T, 1), 1, 1, triangles=T)
+    del tris, bvh, keys, boxes, skeys
     torch.cuda.empty_cache()
 
 

@@ -155,17 +155,40 @@ def test_conv_flops_count_every_convolution(W):
 
 @pytest.mark.parametrize("origin_rows", [1, 65536])
 def test_mesh_raycast_counts_every_test(origin_rows):
-    """Row C: 36 B a triangle, 12 B a ray and an origin row read, 8 B a ray
-    written; 46 float32 operations for each ray/triangle pair (the two
-    cross products 9 each, four dots 5 each, 1/det, o - v0, the three
-    products by 1/det and u + v), so the oracle frame's mesh is bound by
-    its operations."""
+    """Row C's dense design (``mesh_raycast_dense``, the parent's kernel):
+    36 B a triangle, 12 B a ray and an origin row read, 8 B a ray written;
+    46 float32 operations for each ray/triangle pair (the two cross
+    products 9 each, four dots 5 each, 1/det, o - v0, the three products
+    by 1/det and u + v), so the oracle frame's mesh is bound by its
+    operations."""
     assert bounds.MT_FLOPS == 46
     R, T = 65536, 6_312_231
-    b = bounds.mesh_raycast(R, T, origin_rows)
+    b = bounds.mesh_raycast_dense(R, T, origin_rows)
     assert b.bytes == 36 * T + 12 * (R + origin_rows) + 8 * R
     assert b.flops == 46 * R * T
     assert b.by == "operations"
     assert b.ms == pytest.approx(284.02, abs=0.01)
-    small = bounds.mesh_raycast(2, 1, origin_rows=1)
+    small = bounds.mesh_raycast_dense(2, 1, origin_rows=1)
     assert small.by == "bytes" and small.bytes == 36 + 12 * 3 + 16
+
+
+def test_mesh_raycast_is_the_bytes_bound():
+    """Row C, whatever the design, reads every triangle once (an unread one
+    could be the nearest), the rays and origins, and writes t and the
+    index: 228,551,048 bytes, 0.0682 ms at 3.35 TB/s on the oracle frame,
+    and no operations; the build's stages each move their bytes once."""
+    R, T = 65536, 6_312_231
+    b = bounds.mesh_raycast(R, T, 1)
+    assert (b.bytes, b.flops, b.by) == (228_551_048, 0, "bytes")
+    assert b.ms == pytest.approx(0.0682, abs=5e-5)
+    assert bounds.mesh_raycast(R, T, R).bytes == b.bytes + 12 * (R - 1)
+    assert bounds.bvh_keys(T).bytes == 68 * T + 52
+    assert bounds.bvh_sort(T).bytes == 24 * T
+    assert bounds.bvh_hierarchy(T).bytes == 8 * T + 12 * (T - 1) + 4 * (
+        2 * T - 1)
+    assert bounds.bvh_refit(T).bytes == 28 * T + 4 * (2 * T - 1) + 72 * (
+        T - 1) + 4
+    assert bounds.bvh_reorder(T).bytes == 88 * T
+    for f in (bounds.bvh_keys, bounds.bvh_sort, bounds.bvh_hierarchy,
+              bounds.bvh_refit, bounds.bvh_reorder):
+        assert f(T).by == "bytes" and 0 < f(T).ms < 1

@@ -67,10 +67,11 @@ def test_imports_leave_jax_out():
 def test_build_needs_no_nvcc_until_a_launch(tmp_path, monkeypatch):
     """_build imports without nvcc; a build without nvcc raises."""
     names = sorted(p.name for p in _build.sources())
-    assert names == ["confusion.cu", "errors.cu", "mesh_raycast.cu",
-                     "probe_ablate.cu", "probe_parts.cu", "probe_runs.cuh",
-                     "probe_write.cu", "raymarch.cu", "tsdf_common.cuh",
-                     "tsdf_geometry.cu", "tsdf_integrate.cu", "zbuffer.cu"]
+    assert names == ["confusion.cu", "errors.cu", "mesh_bvh.cu",
+                     "mesh_raycast.cu", "probe_ablate.cu", "probe_parts.cu",
+                     "probe_runs.cuh", "probe_write.cu", "raymarch.cu",
+                     "tsdf_common.cuh", "tsdf_geometry.cu",
+                     "tsdf_integrate.cu", "zbuffer.cu"]
     assert _build.library_path().name.startswith("_ltkernels-")
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
     monkeypatch.setenv("PATH", str(tmp_path))
@@ -129,7 +130,33 @@ def test_cpu_calls_launch_no_kernel(small_spec):
         "zbuffer": 0, "confusion": 0, "tsdf_integrate": 0,
         "tsdf_integrate_chain": 0, "tsdf_geometry": 0, "probe_parts": 0,
         "probe_ablate": 0, "probe_write": 0, "raymarch": 0,
-        "raymarch_pack": 0, "mesh_raycast": 0}
+        "raymarch_pack": 0, "mesh_bvh_keys": 0, "mesh_bvh_hierarchy": 0,
+        "mesh_bvh_refit": 0, "mesh_bvh_reorder": 0, "mesh_raycast": 0,
+        "mesh_raycast_dense": 0}
+
+
+def test_mesh_entries_are_bound_and_counted():
+    """Row C's entries have their C signatures and launch keys: the four
+    build kernels, the traversal (``lt_mesh_raycast``, key
+    ``mesh_raycast``) and the dense kernel of the parent design under its
+    own key; each entry's name is defined once in ``csrc/``, with as many
+    parameters as its signature lists."""
+    import re
+
+    entries = {"lt_mesh_bvh_keys": "mesh_bvh_keys",
+               "lt_mesh_bvh_hierarchy": "mesh_bvh_hierarchy",
+               "lt_mesh_bvh_refit": "mesh_bvh_refit",
+               "lt_mesh_bvh_reorder": "mesh_bvh_reorder",
+               "lt_mesh_raycast": "mesh_raycast",
+               "lt_mesh_raycast_dense": "mesh_raycast_dense"}
+    counts = _build.launch_counts()
+    text = "".join(p.read_text() for p in _build.sources())
+    for entry, key in entries.items():
+        assert entry in _build.SIGNATURES and key in counts
+        defs = re.findall(r'extern "C" int ' + entry + r"\(([^)]*)\)", text)
+        assert len(defs) == 1, entry
+        assert len(defs[0].split(",")) == len(_build.SIGNATURES[entry])
+    assert len(_build.SIGNATURES["lt_mesh_raycast"]) == 11
 
 
 def test_extra_nvcc_flags_name_another_library(monkeypatch):
