@@ -84,8 +84,27 @@
      ``evaluate_semantics`` of each (the z-buffer in every scan's
      projection, the confusion counts in the evaluation), and
      ``run_workflow("fake_on_real")`` with darknet21 through the CLI's
-     mergemesh transfer.
-   Every kernel of a path must have launched in its run.
+     mergemesh transfer;
+   - parallel (``parallel/``, torch.distributed): two gloo ranks sharing
+     cuda:0, spawned as ``python chip_smoke.py --parallel-child RANK
+     WORLD WORK`` (NCCL refuses two ranks on one card; gloo reduces CUDA
+     tensors through ``all_reduce``, which is all the path uses):
+     ``integrate_sharded`` of scan 0's merged image into two
+     1024x2048x208 float32 X-slabs (row 1 at x_offset 0 and 1024),
+     ``splat_synthesize_sharded`` of that frame to HDL32 (the band probe
+     on each slab, one MIN and one SUM ``all_reduce``, row A in the
+     target assemble), ``sharded_confusion`` of its labels against the
+     splat's (row 3 on each rank's rows, one SUM), and
+     ``frame_parallel_transfer`` of frames 0-3, each rank loading and
+     running its two (row A); then 3 DDP steps of float32 darknet53 (TF32
+     off, one frame a rank); then the two entry points under the group:
+     ``train_segmentation`` of float32 darknet53 (batch 2, a checkpoint
+     at step 2, resumed to step 3) and ``grid_search(mesh=...)`` with one
+     mergemesh cell of 3 frames at the reference voxel (padded to 4);
+     then one NCCL rank's DDP step of bf16 darknet53 at batch 2. A child
+     that fails fails the phase.
+   Every kernel of a path must have launched in its run (the parallel
+   path's in each child).
 3. Checks the outputs: files written, the stream equal to the per-frame run,
    the card's virtual scans against the port's CPU run of the same frame
    (mergemesh, mesh, cp, upsampling; raymarch at +-12.8/+-12.8/+-3.2 m),
@@ -111,7 +130,28 @@
    prediction file of the scan's length in the mapper's raw ids, finite
    scores, and one float32 darknet53 forward on the card (TF32 off)
    against the CPU (argmax agreement >= 99.9 %; bf16 against float32
-   printed).
+   printed); on each parallel rank its slab against its planes of the
+   whole volume fused by ``integrate_cuda`` in one process (label and
+   weight exact, tsdf and rem bit for bit, else the count and largest
+   difference held to 1e-6), the sharded scan equal to the whole volume's
+   ``splat_synthesize(attrs="volume")`` bit for bit, the summed counts
+   equal to ``confusion_matrix`` of the whole images, the four gathered
+   frames equal to ``transfer_fast`` bit for bit; each kernel against
+   its plain version on the path's own inputs: two 16-plane windows of
+   the slab against the plain ``integrate`` at their global x_offset
+   (as the mergemesh slabs), the rank's 32x2048 share of the counts
+   against ``confusion_scatter`` and the summed counts against
+   ``confusion_scatter`` of the whole images (exact), the sharded scan's
+   z-buffer winners against ``zbuffer_winners_plain`` (exact); the DDP
+   losses against the one-process step's within a relative 1e-5 and its
+   parameters after 3 steps against the one-process step of batch 2
+   (the bounds of ``tests/test_torch_experiments.py``: every one within
+   2e-3, >= 99.9 % within 1e-4); the resumed ``train_segmentation``
+   checkpoint (step 3, no ``module.`` prefix) against a one-process
+   ``train_segmentation`` of 3 steps at batch 2 within the same bounds;
+   the device-parallel grid cell's IoU, Acc and MSE equal to the
+   sequential ``evaluate_transfer`` of the cell, and its
+   ``grid_search.json`` written; and no jax in any child.
 4. Times each kernel four ways: the wrapper's time (CUDA events around
    back-to-back calls), the device time (the summed durations of the device
    operations of one call, from a ``torch.profiler`` trace), its plain
@@ -135,8 +175,13 @@
    and the cycles a sample they imply, the stream rates, fused_state() and
    export_mesh(), each with the GPU's name and power limit; and profiles
    the frame of every adaption for its device time, device launches and
-   idle share. Nothing of the earlier paths was cut to make room: the
-   frame timings average 10 passes where they took 20.
+   idle share; on each parallel rank the slab integrate (CUDA events),
+   the probe-and-merge of one source (host clock: gloo reduces on the
+   host) with the bytes it reduces, and the DDP step beside the
+   one-process step, then the NCCL rank's bf16 DDP step beside the
+   one-process step (two ranks on one card measure the collectives'
+   cost, not scaling). Nothing of the earlier paths was cut to make
+   room: the frame timings average 10 passes where they took 20.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists the kernels as JSON (route, source, the TPU kernel replaced, launches
@@ -1249,6 +1294,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         paths["segmentation"] = _segmentation_path(torch, work, tag,
                                                    per_frame)
+        torch.cuda.empty_cache()
+        paths["parallel"] = _parallel_path(torch, work, tag, per_frame)
         torch.cuda.empty_cache()
     paths["probes"] = per_frame["probes"] = _probe_path(torch, kernels, tag)
     _kernel_cases(torch, kernels, tag)
@@ -2866,5 +2913,427 @@ def _profile_frames(torch, eng, wins, frame_ms, tag):
         f"{n[:60]} {us:.1f}" for n, us in lead))
 
 
+# ------------------------------------------------------- parallel phase
+#: the rank count of the parallel phase's gloo children (sharing cuda:0)
+PAR_WORLD = 2
+
+
+def _parallel_ddp_setup(torch, work, dev, compute_dtype):
+    """-> (darknet53 computing in ``compute_dtype`` at the seed's
+    parameters, its Adam, the batch of frames 0 and 1 of ``work/kitti``
+    (64x2048))."""
+    import dataclasses
+
+    from lidar_transfer_tpu_torch.config import SensorSpec
+    from lidar_transfer_tpu_torch.experiments import segmentation as SG
+    from lidar_transfer_tpu_torch.models import (RangeNet, RangeNetConfig,
+                                                 make_train_state)
+
+    mapper = SG.LabelMapper.from_labels(dict(
+        _config(work, "par_seg")[0].labels))
+    cfg = dataclasses.replace(
+        RangeNetConfig.darknet53(num_classes=mapper.num_classes),
+        compute_dtype=compute_dtype)
+    model = RangeNet(cfg).to(dev)
+    opt = make_train_state(model, torch.Generator().manual_seed(0))
+    seq, cap = _sequence(work)
+    spec = SensorSpec.from_yaml(os.path.join(work, "kitti", "config.yaml"))
+    frames = [SG._frame_tensors(seq, i, spec, cap, mapper, dev)
+              for i in (0, 1)]
+    batch = {k: torch.stack([f[i] for f in frames])
+             for i, k in enumerate(("features", "labels", "weights"))}
+    return model, opt, batch
+
+
+def _step_ms(torch, step, n):
+    """Median ms of ``n`` calls of ``step``, each ended by a device
+    synchronise (host clock: a gloo step waits on the host)."""
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(times))
+
+
+def _parallel_path(torch, work, tag, per_frame):
+    """``parallel/`` at the reference point: two gloo ranks sharing cuda:0,
+    spawned as ``python chip_smoke.py --parallel-child`` (X-slab fusion
+    of scan 0 into two 1024x2048x208 float32 slabs and its synthesis, each
+    held to the whole volume; the summed confusion counts; the
+    frame-parallel transfer of 4 frames against ``transfer_fast``; 3 DDP
+    steps of float32 darknet53, one frame a rank, against the one-process
+    step of batch 2 computed here first), then one NCCL rank's DDP step of
+    bf16 darknet53 at batch 2 beside the one-process step. The children
+    also run ``train_segmentation`` and a device-parallel ``grid_search``
+    cell, held to the one-process runs made here. A child that fails
+    fails the phase. Returns the children's launch counts, summed."""
+    import dataclasses
+    import subprocess
+
+    import torch.distributed as dist
+
+    from lidar_transfer_tpu_torch import _build
+    from lidar_transfer_tpu_torch.experiments import segmentation as SG
+    from lidar_transfer_tpu_torch.experiments.grid_search import (
+        evaluate_transfer)
+    from lidar_transfer_tpu_torch.models.rangenet import train_step
+    from lidar_transfer_tpu_torch.parallel import (make_mesh,
+                                                   sharded_train_step)
+    from lidar_transfer_tpu_torch.parallel.multihost import initialize
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        model, opt, batch = _parallel_ddp_setup(torch, work, dev,
+                                                torch.float32)
+        ref_losses = [float(train_step(model, opt, batch))
+                      for _ in range(3)]
+        torch.save(model.state_dict(), os.path.join(work, "par_ref.pt"))
+        one_ms = _step_ms(torch, lambda: train_step(model, opt, batch), 5)
+        # the entry points' one-process runs: train_segmentation of 3
+        # steps at batch 2, and the grid cell run frame after frame
+        seg_model, _, _ = SG.train_segmentation(
+            os.path.join(work, "kitti"), steps=3, batch_size=2,
+            model_cfg=model.cfg, seed=0, device=dev, verbose=False)
+        torch.save(seg_model.state_dict(),
+                   os.path.join(work, "par_seg_ref.pt"))
+        del seg_model
+        cell_cfg = dataclasses.replace(
+            _config(work, "par_transfer")[0], adaption="mergemesh",
+            number_of_scans=1)
+        seq_cell = evaluate_transfer(os.path.join(work, "kitti"), cell_cfg,
+                                     frames=3, fixed_bounds=True, device=dev)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    del model, opt, batch
+    torch.cuda.empty_cache()
+
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--parallel-child",
+         str(r), str(PAR_WORLD), work], cwd=REPO)
+        for r in range(PAR_WORLD)]
+    try:
+        rcs = [p.wait(timeout=900) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    check(rcs == [0] * PAR_WORLD, f"parallel children exit codes {rcs}")
+    res = []
+    for r in range(PAR_WORLD):
+        with open(os.path.join(work, f"par{r}.json")) as f:
+            res.append(json.load(f))
+    counts = {k: sum(c["launches"][k] for c in res)
+              for k in _build.launch_counts()}
+    grid_file = os.path.join(work, "par_grid", "grid_search.json")
+    check(os.path.exists(grid_file), "the device-parallel grid_search "
+          "wrote no grid_search.json")
+    print(f"parallel: {PAR_WORLD} ranks, backend "
+          f"{[c['backend'] for c in res]}, sharing cuda:0; launches "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    for c in res:
+        check(not c["foreign"], f"parallel rank {c['rank']} imported "
+              f"{c['foreign'][:3]}")
+        for k in ("tsdf_integrate", "zbuffer", "confusion"):
+            check(c["launches"][k] > 0, f"kernel {k} never launched on "
+                  f"parallel rank {c['rank']}")
+        check(np.allclose(c["ddp_losses"], ref_losses, rtol=1e-5, atol=0),
+              f"parallel rank {c['rank']}: DDP losses {c['ddp_losses']} "
+              f"beside the one-process {ref_losses} (rtol 1e-5)")
+        cell = c["grid"]
+        check(cell["frames"] == seq_cell["frames"] == 3
+              and all(cell[k] == seq_cell[k] for k in ("iou", "acc", "mse")),
+              f"parallel rank {c['rank']}: device-parallel grid cell {cell} "
+              f"!= the sequential cell {seq_cell}")
+        print(f"parallel rank {c['rank']}: slab against the whole volume "
+              f"(mismatches, max |diff|) {c['slab_vs_whole']}; synthesis "
+              f"equal {c['synth_equal']} (hit {c['hit']:.4f}); confusion "
+              f"equal {c['confusion_equal']} ({c['confusion_total']} "
+              f"pixels); frames equal {c['frames_equal']}; DDP losses "
+              f"{c['ddp_losses']} (one process {ref_losses}), max |param "
+              f"diff| {c['ddp_max_err']:.3e}, within 1e-4 "
+              f"{c['ddp_share_1e-4']:.6f}, beyond 2e-3 "
+              f"{c['ddp_over_2e-3']}; train_segmentation resumed at step 2 "
+              f"against one process: max |param diff| "
+              f"{c['seg_max_err']:.3e}, within 1e-4 "
+              f"{c['seg_share_1e-4']:.6f}; grid cell (IoU, Acc, MSE) "
+              f"{tuple(cell[k] for k in ('iou', 'acc', 'mse'))} equal to "
+              f"the sequential cell's")
+        print(f"parallel rank {c['rank']} (two gloo ranks share one card: "
+              f"the collectives' cost, not scaling): slab integrate "
+              f"1024x2048x208 {c['integrate_ms']:.4f} ms; probe and merge "
+              f"{c['probe_merge_ms']:.3f} ms, {c['bytes_reduced']} bytes "
+              f"reduced a call; DDP step float32, one frame a rank "
+              f"{c['ddp_step_ms']:.3f} ms beside the one-process step of "
+              f"batch 2 {one_ms:.3f} ms {tag}")
+
+    # one NCCL rank: the DDP step of bf16 darknet53 at batch 2
+    backend = initialize(f"file://{os.path.join(work, 'nccl_pg')}", 1, 0,
+                         backend="nccl", device=dev)
+    try:
+        mesh = make_mesh(model=1)
+        model, opt, batch = _parallel_ddp_setup(torch, work, dev,
+                                                torch.bfloat16)
+        step = sharded_train_step(model, opt, mesh)
+        losses = [float(step(batch)) for _ in range(2)]
+        check(all(np.isfinite(losses)), f"NCCL DDP losses {losses}")
+        ddp_ms = _step_ms(torch, lambda: step(batch), 10)
+        plain_ms = _step_ms(torch, lambda: train_step(model, opt, batch), 10)
+    finally:
+        dist.destroy_process_group()
+    print(f"parallel: one {backend} rank, DDP step of bf16 darknet53, batch "
+          f"2 at 64x2048: {ddp_ms:.3f} ms (median of 10) beside the "
+          f"one-process step {plain_ms:.3f} ms; phase "
+          f"{time.perf_counter() - t_phase:.1f} s wall {tag}")
+    del model, opt, batch, step
+    # launches a rank (the ranks do the same work); the path's total sums
+    # them
+    per_frame["parallel"] = {k: v / PAR_WORLD for k, v in counts.items()}
+    return counts
+
+
+def _parallel_child(argv) -> int:
+    """One gloo rank of the parallel phase on cuda:0 (``python chip_smoke.py
+    --parallel-child RANK WORLD WORK``); writes ``WORK/par<RANK>.json``.
+    Every failed check raises, and the exit code is then nonzero."""
+    import torch
+    import torch.distributed as dist
+
+    from lidar_transfer_tpu_torch import _build
+    from lidar_transfer_tpu_torch.config import HDL64, SensorSpec
+    from lidar_transfer_tpu_torch.experiments import segmentation as SG
+    from lidar_transfer_tpu_torch.experiments.grid_search import grid_search
+    from lidar_transfer_tpu_torch.metrics.confusion import (
+        confusion_matrix, confusion_scatter)
+    from lidar_transfer_tpu_torch.ops import projection as TP
+    from lidar_transfer_tpu_torch.ops import tsdf as TS
+    from lidar_transfer_tpu_torch.ops.splat import splat_synthesize
+    from lidar_transfer_tpu_torch.ops.tsdf_cuda import integrate_cuda
+    from lidar_transfer_tpu_torch.parallel import (
+        frame_parallel_transfer, integrate_sharded, make_mesh,
+        shard_volume, sharded_band_probe, sharded_confusion,
+        sharded_train_step, splat_synthesize_sharded)
+    from lidar_transfer_tpu_torch.parallel.multihost import (
+        initialize, load_global_windows)
+    from lidar_transfer_tpu_torch.parallel.sharding import slab_range
+    from lidar_transfer_tpu_torch.pipeline import deform as TD
+    from lidar_transfer_tpu_torch.pipeline.multiscan import load_window
+
+    rank, world, work = int(argv[0]), int(argv[1]), argv[2]
+    dev = torch.device("cuda", 0)
+    backend = initialize(f"file://{os.path.join(work, 'par_pg')}", world,
+                         rank, backend="gloo", device=dev)
+    res = {"rank": rank, "backend": backend}
+    try:
+        _build.library()
+        mesh = make_mesh(model=1)
+        cfg, _ = _config(work, "par_transfer")
+        hdl32 = SensorSpec.from_yaml(HDL32_PATH)
+        eng = TD.TransferEngine(HDL64, hdl32, cfg, fixed_bounds=True,
+                                device=dev)
+        spec, t = eng.vol_spec, eng.target
+        seq, cap = _sequence(work)
+        window = load_window(seq, cfg, 0, cap, dev)
+        ri, origin, active, _, _ = eng._merged_image(window)
+        back = TP.reverse_project(ri, fov_up_deg=t.fov_up,
+                                  fov_down_deg=t.fov_down,
+                                  preserve_float=True)
+        src = (ri.range.reshape(-1), back, ri.mask.reshape(-1))
+        tgt = dict(target_H=t.H, target_W=t.W, fov_up_deg=t.fov_up,
+                   fov_down_deg=t.fov_down, beam_angles=eng.t_beam_angles)
+        img = (ri.range, ri.label, ri.remission)
+        fov = dict(fov_up_deg=t.fov_up, fov_down_deg=t.fov_down)
+        frames = [0, 1, 2, 3]
+        wins = load_global_windows(seq, cfg, frames, cap, mesh, dev)
+        torch.cuda.synchronize()
+        dist.barrier()
+
+        # the path: X-slab fusion and synthesis, the summed counts, the
+        # frame-parallel transfer; launches counted from here
+        _build.reset_launch_counts()
+        slab = integrate_sharded(shard_volume(spec, mesh, device=dev), spec,
+                                 mesh, *img, **fov)
+        scan = splat_synthesize_sharded(slab, spec, mesh, [src], **tgt)
+        fp = frame_parallel_transfer(eng, wins, mesh)
+        # the volume probe's labels against the splat's, each rank its
+        # share of the rows
+        rows = slice(rank * t.H // world, (rank + 1) * t.H // world)
+        conf = sharded_confusion(mesh, 260)(scan[1][rows].contiguous(),
+                                            fp[1][0][rows].contiguous())
+        torch.cuda.synchronize()
+        res["launches"] = _build.launch_counts()
+
+        # the checks. Each kernel against its plain version on this path's
+        # inputs: two 16-plane windows of the slab at their global x_offset
+        x0, planes = slab_range(spec, mesh)
+        per_x = (slab.tsdf < 1).sum(dim=(1, 2))
+        for w in (int(per_x.argmax()) // 16 * 16, planes // 2):
+            win = TS.VolumeSpec(spec.origin, spec.voxel_size,
+                                (16,) + tuple(spec.dims[1:]))
+            ref = TS.integrate(win.init_state(dev), win, *img,
+                               origin=spec.origin, active_dims=spec.dims,
+                               x_offset=x0 + w, **fov)
+            _compare_states(torch, TS.TSDFState(*(a[w:w + 16]
+                                                  for a in slab)), ref,
+                            f"parallel rank {rank}: slab x={x0 + w}.."
+                            f"{x0 + w + 15} vs plain integrate "
+                            f"({int((ref.tsdf < 1).sum())} surface voxels)")
+            del ref
+        # the rank's share of the counts, and the sharded scan's winners
+        # (the probe is collective: every rank calls it)
+        pred_s = scan[1][rows].reshape(-1).contiguous()
+        tgt_s = fp[1][0][rows].reshape(-1).contiguous()
+        check(torch.equal(confusion_matrix(pred_s, tgt_s, 260),
+                          confusion_scatter(pred_s, tgt_s, 260)),
+              f"rank {rank}: confusion of its {pred_s.numel()} pixels != "
+              "confusion_scatter (exact)")
+        pos, *_, valid = sharded_band_probe(slab, spec, mesh, *src)
+        beams = eng.t_beam_angles
+        pix, key, *_ = TP._pixel_keys(pos, valid, t.fov_up, t.fov_down,
+                                      beams, t.H, t.W, beams is not None,
+                                      "depth")
+        got = TP.zbuffer_winners(pix, key, t.H * t.W)
+        check(torch.equal(got, TP.zbuffer_winners_plain(pix, key,
+                                                        t.H * t.W)),
+              f"rank {rank}: the sharded scan's z-buffer winners != "
+              "zbuffer_winners_plain (exact)")
+        res["zbuffer_winners"] = int((got >= 0).sum())
+        del pos, valid, pix, key, got
+
+        # each rank in turn fuses the whole volume itself
+        for turn in range(world):
+            if turn == rank:
+                whole = integrate_cuda(spec.init_state(dev), spec, *img,
+                                       origin=origin, active_dims=active,
+                                       **fov)
+                diffs = {}
+                for f in ("tsdf", "weight", "label", "rem"):
+                    a = getattr(slab, f)
+                    b = getattr(whole, f)[x0:x0 + planes]
+                    bad = a != b
+                    d = (a.float() - b.float()).abs()
+                    diffs[f] = (int(bad.sum()),
+                                float(d.max()) if d.numel() else 0.0)
+                res["slab_vs_whole"] = diffs
+                check(diffs["label"][0] == 0 and diffs["weight"][0] == 0,
+                      f"rank {rank}: slab label/weight differ from the "
+                      f"whole volume: {diffs}")
+                check(diffs["tsdf"][1] <= 1e-6 and diffs["rem"][1] <= 1e-6,
+                      f"rank {rank}: slab tsdf/rem beyond 1e-6: {diffs}")
+                srcs5 = [src + (ri.label.reshape(-1),
+                                torch.clamp(ri.remission, min=0.0)
+                                .reshape(-1))]
+                ref = splat_synthesize(
+                    whole, spec, srcs5, vol_origin=origin,
+                    active_dims=active, attrs="volume", **tgt)
+                res["synth_equal"] = all(torch.equal(a, b)
+                                         for a, b in zip(scan, ref))
+                res["hit"] = float(ref[4].float().mean())
+                check(res["synth_equal"], f"rank {rank}: sharded synthesis "
+                      "!= the whole volume's (bit for bit)")
+                del whole, ref
+                torch.cuda.empty_cache()
+            dist.barrier()
+        full = confusion_scatter(scan[1].reshape(-1).contiguous(),
+                                 fp[1][0].reshape(-1).contiguous(), 260)
+        res["confusion_total"] = int(full.sum())
+        res["confusion_equal"] = bool(torch.equal(conf, full))
+        check(res["confusion_equal"], "sharded confusion != "
+              "confusion_scatter of the whole images (exact)")
+        same = []
+        for k, idx in enumerate(frames):
+            vs = eng.transfer_fast(load_window(seq, cfg, idx, cap, dev))
+            same.append(all(torch.equal(a[k], b)
+                            for a, b in zip(fp, vs[:5])))
+        res["frames_equal"] = same
+        check(all(same), f"frame_parallel_transfer != transfer_fast: {same}")
+
+        # times: the slab integrate (CUDA events) and the probe-and-merge
+        # (host clock; gloo reduces on the host)
+        res["integrate_ms"] = cuda_ms(
+            lambda: integrate_sharded(slab, spec, mesh, *img, **fov), 5)
+        res["probe_merge_ms"] = _step_ms(
+            torch, lambda: sharded_band_probe(slab, spec, mesh, *src), 5)
+        res["bytes_reduced"] = 16 * src[0].numel()
+        del slab, scan
+        torch.cuda.empty_cache()
+
+        # DDP: darknet53, one frame a rank, 3 steps, float32, TF32 off
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        model, opt, batch = _parallel_ddp_setup(torch, work, dev,
+                                                torch.float32)
+        mine = {k: v[rank:rank + 1] for k, v in batch.items()}
+        step = sharded_train_step(model, opt, mesh)
+        res["ddp_losses"] = [float(step(mine)) for _ in range(3)]
+        want = torch.load(os.path.join(work, "par_ref.pt"),
+                          map_location=dev)
+        diff = torch.cat([(p.detach() - want[k]).abs().reshape(-1)
+                          for k, p in model.state_dict().items()])
+        res["ddp_max_err"] = float(diff.max())
+        res["ddp_share_1e-4"] = float((diff <= 1e-4).float().mean())
+        res["ddp_over_2e-3"] = int((diff > 2e-3).sum())
+        # the bounds of tests/test_torch_experiments.py
+        check(res["ddp_max_err"] <= 2e-3 and res["ddp_share_1e-4"] >= 0.999,
+              f"DDP darknet53 beyond its bounds: max "
+              f"{res['ddp_max_err']}, share within 1e-4 "
+              f"{res['ddp_share_1e-4']}")
+        res["ddp_step_ms"] = _step_ms(torch, lambda: step(mine), 5)
+        seg_cfg = model.cfg
+        del model, opt, batch, mine, step, want, diff
+        torch.cuda.empty_cache()
+
+        # the entry points under the group: train_segmentation (batch 2,
+        # one frame a rank; a checkpoint at step 2, resumed to step 3) ...
+        ds = os.path.join(work, "kitti")
+        ckpt = os.path.join(work, "par_seg.pt")
+        kw = dict(batch_size=2, model_cfg=seg_cfg, seed=0, device=dev,
+                  checkpoint_path=ckpt, verbose=False)
+        SG.train_segmentation(ds, steps=2, **kw)
+        SG.train_segmentation(ds, steps=3, resume=True, **kw)
+        blob = torch.load(ckpt, map_location=dev, weights_only=False)
+        want = torch.load(os.path.join(work, "par_seg_ref.pt"),
+                          map_location=dev)
+        check(blob["step"] == 3 and set(blob["model_state"]) == set(want),
+              f"rank {rank}: the resumed checkpoint holds step "
+              f"{blob['step']} and keys {sorted(blob['model_state'])[:3]}")
+        diff = torch.cat([(v - want[k]).abs().reshape(-1)
+                          for k, v in blob["model_state"].items()])
+        res["seg_max_err"] = float(diff.max())
+        res["seg_share_1e-4"] = float((diff <= 1e-4).float().mean())
+        check(res["seg_max_err"] <= 2e-3 and res["seg_share_1e-4"] >= 0.999,
+              f"rank {rank}: train_segmentation under the group beyond "
+              f"the bounds: max {res['seg_max_err']}, share within 1e-4 "
+              f"{res['seg_share_1e-4']}")
+        del blob, want, diff
+        # ... and a device-parallel grid cell of 3 frames (padded to 4)
+        out = grid_search(ds, frames_list=[1], voxel_sizes=[cfg.voxel_size],
+                          adaption="mergemesh", base_cfg=cfg,
+                          frames_per_cell=3, verbose=False, mesh=mesh,
+                          device=dev, out_dir=os.path.join(work, "par_grid"))
+        cell = out["cells"][0]["sequences"]["00"]
+        check(out["grid"]["device_parallel"], "grid_search ran sequential")
+        res["grid"] = {k: cell[k] for k in ("frames", "iou", "acc", "mse")}
+    finally:
+        dist.destroy_process_group()
+    res["foreign"] = sorted(m for m in sys.modules
+                            if m.split(".")[0] in ("jax", "jaxlib",
+                                                   "lidar_transfer_tpu"))
+    with open(os.path.join(work, f"par{rank}.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-child"]:
+        sys.exit(_parallel_child(sys.argv[2:]))
     sys.exit(main())

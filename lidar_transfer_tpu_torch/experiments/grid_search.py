@@ -5,9 +5,9 @@ Counterpart of ``lidar_transfer_tpu/experiments/grid_search.py`` (the
 the reference's ``experiments/grid_search_nframes_voxelsize.py``: each cell
 calls the port's ``TransferEngine`` and its metrics come back as values;
 the results are written as JSON and rendered as SVG heat maps like the
-reference's plots. A cell's frames run one after another on one device:
-the device-parallel cells of the JAX package (``mesh=``) are not ported
-(ROADMAP queue 1, item 8, ``parallel/``).
+reference's plots. A cell's frames run one after another on one device,
+or with ``mesh=`` (``--device-parallel``, under ``torchrun``) spread over
+the ranks of a process group by ``parallel.frame_parallel_transfer``.
 """
 
 from __future__ import annotations
@@ -20,9 +20,6 @@ import time
 
 import numpy as np
 import torch
-
-_NO_MESH = ("device-parallel cells are not ported (ROADMAP queue 1, item "
-            "8: parallel/); run the cell's frames in sequence (mesh=None)")
 
 
 def _compare_one(seq, eng, cfg, capacity, idx, vs):
@@ -51,25 +48,32 @@ def evaluate_transfer(dataset: str, cfg, sequence: str = "00",
                       fixed_bounds: bool = False,
                       mesh=None, mesh_attrs: str = "fold",
                       device="cuda") -> dict:
-    """Run the transfer on ``frames`` scans, one after another, and return
-    the mean IoU/Acc/MSE: one in-process reference grid-search cell.
-    ``mesh`` (device-parallel frames) raises ``NotImplementedError``."""
+    """Run the transfer on ``frames`` scans and return the mean
+    IoU/Acc/MSE: one in-process reference grid-search cell.
+
+    ``mesh``: a ``parallel.make_mesh`` mesh (every rank of the process
+    group calls this with it). The cell's frames, padded to a multiple of
+    its "data" axis, then run spread over the ranks
+    (``parallel.frame_parallel_transfer``, which implies fixed bounds; each
+    rank reads only its own frames) and come back to every rank, which
+    scores them all; mergemesh only, as the JAX package.
+    """
     from lidar_transfer_tpu_torch.config import SensorSpec
     from lidar_transfer_tpu_torch.datasets import kitti
     from lidar_transfer_tpu_torch.experiments.segmentation import _device
-    from lidar_transfer_tpu_torch.pipeline.deform import TransferEngine
+    from lidar_transfer_tpu_torch.pipeline.deform import (TransferEngine,
+                                                          VirtualScan)
     from lidar_transfer_tpu_torch.pipeline.multiscan import (
         load_window, max_end_index, min_start_index)
 
-    if mesh is not None:
-        raise NotImplementedError(_NO_MESH)
     device = _device(device)
     source = SensorSpec.from_yaml(os.path.join(dataset, "config.yaml"))
     target = SensorSpec.from_yaml(target_yaml) if target_yaml else source
     seq = kitti.KittiSequence.open(dataset, sequence)
     capacity = kitti.scan_capacity(
         max(os.path.getsize(f) // 16 for f in seq.scan_files))
-    eng = TransferEngine(source, target, cfg, fixed_bounds=fixed_bounds,
+    eng = TransferEngine(source, target, cfg,
+                         fixed_bounds=fixed_bounds or mesh is not None,
                          mesh_attrs=mesh_attrs, device=device)
 
     idx0 = max(offset, min_start_index(cfg.number_of_scans))
@@ -78,16 +82,39 @@ def evaluate_transfer(dataset: str, cfg, sequence: str = "00",
     same_dims = (source.H, source.W) == (target.H, target.W)
     scores = []
     t0 = time.time()
-    for idx in indices:
-        window = load_window(seq, cfg, idx, capacity, device)
-        # cp takes its exact per-frame path, as the CLI; the others the
-        # production path (transfer_fast)
-        vs = (eng.transfer(window)[0] if cfg.adaption == "cp"
-              else eng.transfer_fast(window))
-        if same_dims:
-            scores.append(_compare_one(seq, eng, cfg, capacity, idx, vs))
+    if mesh is not None and indices:
+        if cfg.adaption != "mergemesh":
+            raise ValueError("device-parallel cells support mergemesh only")
+        from lidar_transfer_tpu_torch.parallel.multihost import (
+            load_global_windows)
+        from lidar_transfer_tpu_torch.parallel.sharding import (
+            axis_sizes, frame_parallel_transfer)
+
+        # pad the batch to a multiple of the data axis; the padded frames
+        # are dropped
+        pad = (-len(indices)) % axis_sizes(mesh)["data"]
+        batch = load_global_windows(seq, cfg, indices + [indices[-1]] * pad,
+                                    capacity, mesh, device)
+        outs = frame_parallel_transfer(eng, batch, mesh=mesh)
+        for k, idx in enumerate(indices):
+            vs = VirtualScan(*(o[k] for o in outs), adaption=cfg.adaption)
+            if same_dims:
+                scores.append(_compare_one(seq, eng, cfg, capacity, idx,
+                                           vs))
         if device.type == "cuda":
             torch.cuda.synchronize(device)
+    else:
+        for idx in indices:
+            window = load_window(seq, cfg, idx, capacity, device)
+            # cp takes its exact per-frame path, as the CLI; the others
+            # the production path (transfer_fast)
+            vs = (eng.transfer(window)[0] if cfg.adaption == "cp"
+                  else eng.transfer_fast(window))
+            if same_dims:
+                scores.append(_compare_one(seq, eng, cfg, capacity, idx,
+                                           vs))
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
     dt = time.time() - t0
     # grid cells are quality measurements: scans_per_sec includes the
     # per-frame metric reads and is informational only
@@ -110,13 +137,16 @@ def grid_search(dataset: str, *, frames_list=(1, 2, 3),
     """Sweep number_of_scans x voxel_size over sequences.
 
     Returns {"cells": [...], "grid": {...}} and, with ``out_dir``, writes
-    ``grid_search.json`` + ``heatmap_{iou,acc,mse}.svg``. ``mesh`` raises
-    ``NotImplementedError`` (see ``evaluate_transfer``).
+    ``grid_search.json`` + ``heatmap_{iou,acc,mse}.svg`` (rank 0 alone in
+    a process group). ``mesh``: each cell's frames run spread over its
+    ranks (see ``evaluate_transfer``).
     """
+    import torch.distributed as dist
+
     from lidar_transfer_tpu_torch.config import TransferConfig
 
-    if mesh is not None:
-        raise NotImplementedError(_NO_MESH)
+    rank = (dist.get_rank()
+            if dist.is_available() and dist.is_initialized() else 0)
     base = base_cfg or TransferConfig()
     cells = []
     for nscans in frames_list:
@@ -128,7 +158,7 @@ def grid_search(dataset: str, *, frames_list=(1, 2, 3),
                                          offset=offset,
                                          frames=frames_per_cell,
                                          target_yaml=target_yaml,
-                                         mesh_attrs=mesh_attrs,
+                                         mesh=mesh, mesh_attrs=mesh_attrs,
                                          device=device)
                        for seq in sequences]
             cell = {"number_of_scans": int(nscans),
@@ -145,7 +175,7 @@ def grid_search(dataset: str, *, frames_list=(1, 2, 3),
                         cell[key + "_min"] = float(np.min(vals))
                         cell[key + "_max"] = float(np.max(vals))
             cells.append(cell)
-            if verbose:
+            if verbose and rank == 0:
                 msg = ", ".join(f"{k}={cell[k]:.4f}"
                                 for k in ("iou", "acc", "mse") if k in cell)
                 print(f"nscans={nscans} voxel={voxel}: {msg}")
@@ -154,15 +184,15 @@ def grid_search(dataset: str, *, frames_list=(1, 2, 3),
                        "voxel_sizes": list(voxel_sizes),
                        "sequences": list(sequences),
                        "adaption": adaption,
-                       "device_parallel": False,
-                       "fixed_bounds": False,
+                       "device_parallel": mesh is not None,
+                       "fixed_bounds": mesh is not None,
                        # cp cells run the exact per-frame transfer();
                        # everything else runs transfer_fast
                        "transfer_path": ("exact" if adaption == "cp"
                                          else "fast"),
                        "mesh_attrs": mesh_attrs},
               "cells": cells}
-    if out_dir:
+    if out_dir and rank == 0:
         os.makedirs(out_dir, exist_ok=True)
         with open(os.path.join(out_dir, "grid_search.json"), "w") as f:
             json.dump(result, f, indent=2)
@@ -233,6 +263,10 @@ def main(argv=None) -> int:
     p.add_argument("--device", default="cuda",
                    help="Torch device (default cuda; cpu only when asked "
                         "for).")
+    p.add_argument("--device-parallel", action="store_true",
+                   help="run each cell's frames spread over the ranks of "
+                        "the torchrun job, one rank a card (mergemesh "
+                        "only)")
     args = p.parse_args(argv)
     if torch.device(args.device).type == "cuda" \
             and not torch.cuda.is_available():
@@ -241,13 +275,35 @@ def main(argv=None) -> int:
         return 2
 
     base = TransferConfig.from_yaml(args.config) if args.config else None
-    grid_search(args.dataset, frames_list=args.frames_list,
-                voxel_sizes=args.voxel_sizes, sequences=args.sequences,
-                offset=args.offset, frames_per_cell=args.frames_per_cell,
-                adaption=args.adaption, base_cfg=base,
-                target_yaml=args.target, out_dir=args.out,
-                mesh_attrs=args.mesh_attrs, device=args.device)
-    print(f"results in {args.out}")
+    mesh, device, joined, rank = None, args.device, None, 0
+    if args.device_parallel:
+        import torch.distributed as dist
+
+        from lidar_transfer_tpu_torch.parallel.multihost import (
+            initialize_from_env)
+        from lidar_transfer_tpu_torch.parallel.sharding import make_mesh
+
+        joined = initialize_from_env(args.device)
+        if joined is None:
+            print("--device-parallel runs under torchrun with more than one "
+                  "rank (torchrun --nproc-per-node N -m "
+                  "lidar_transfer_tpu_torch.experiments.grid_search ...)",
+                  file=sys.stderr)
+            return 2
+        device, rank = joined[1], dist.get_rank()
+        mesh = make_mesh(model=1)       # every rank on the frame axis
+    try:
+        grid_search(args.dataset, frames_list=args.frames_list,
+                    voxel_sizes=args.voxel_sizes, sequences=args.sequences,
+                    offset=args.offset, frames_per_cell=args.frames_per_cell,
+                    adaption=args.adaption, base_cfg=base,
+                    target_yaml=args.target, out_dir=args.out, mesh=mesh,
+                    mesh_attrs=args.mesh_attrs, device=device)
+    finally:
+        if joined is not None:
+            dist.destroy_process_group()
+    if rank == 0:
+        print(f"results in {args.out}")
     return 0
 
 

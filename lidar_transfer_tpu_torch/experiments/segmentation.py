@@ -8,7 +8,8 @@ evaluate_semantics.py.
 
   train_segmentation  range-project scans (the z-buffer kernel) -> 5-channel
                       features -> RangeNet (bf16 convolutions) with masked
-                      CE and Adam, on one card.
+                      CE and Adam, on one card, or data-parallel over the
+                      ranks of a process group (``torchrun``).
   write_predictions   per-scan argmax -> raw ids per point (optionally the
                       kNN cleanup) -> .label files in semantic-kitti's
                       predictions layout.
@@ -160,13 +161,21 @@ def train_segmentation(dataset: str, *, sequences=("00",), steps: int = 100,
                        use_mesh: bool = True, checkpoint_path=None,
                        checkpoint_every: int = 0, resume: bool = False,
                        device="cuda"):
-    """Train RangeNet on a KITTI-format dataset on one device. Returns
-    (model, mapper, spec). ``checkpoint_every`` > 0 writes
-    ``checkpoint_path`` every N steps; ``resume=True`` continues a killed
-    run from that checkpoint (parameters, Adam state, step, and the same
-    sampling stream replayed). ``use_mesh`` with more than one CUDA device
-    raises: the data-parallel step is not ported (ROADMAP queue 1, item 8,
-    ``parallel/``)."""
+    """Train RangeNet on a KITTI-format dataset. Returns (model, mapper,
+    spec). ``checkpoint_every`` > 0 writes ``checkpoint_path`` every N
+    steps; ``resume=True`` continues a killed run from that checkpoint
+    (parameters, Adam state, step, and the same sampling stream replayed).
+
+    ``use_mesh`` under a process group of more than one rank whose count
+    divides ``batch_size``: every rank draws the same sampling stream,
+    takes its slice of each global batch and steps through
+    ``parallel.sharded_train_step`` (DDP over a model-1 mesh); rank 0 alone
+    prints and writes the checkpoint (the model's own state, no
+    ``module.`` prefix), and every rank waits for it. Otherwise each
+    process trains the whole batch on its own device.
+    """
+    import torch.distributed as dist
+
     from lidar_transfer_tpu_torch.config import SensorSpec, TransferConfig
     from lidar_transfer_tpu_torch.datasets import kitti
     from lidar_transfer_tpu_torch.models import (RangeNet, RangeNetConfig,
@@ -175,10 +184,10 @@ def train_segmentation(dataset: str, *, sequences=("00",), steps: int = 100,
     from lidar_transfer_tpu_torch.utils.prefetch import Prefetcher
 
     device = _device(device)
-    if use_mesh and device.type == "cuda" and torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            "data-parallel training over several cards is not ported "
-            "(ROADMAP queue 1, item 8: parallel/); pass use_mesh=False")
+    grouped = dist.is_available() and dist.is_initialized()
+    rank = dist.get_rank() if grouped else 0
+    world = dist.get_world_size() if grouped and use_mesh else 1
+    verbose = verbose and rank == 0
     cfg = cfg or TransferConfig()
     spec = SensorSpec.from_yaml(os.path.join(dataset, "config.yaml"))
     if width is not None:
@@ -225,6 +234,28 @@ def train_segmentation(dataset: str, *, sequences=("00",), steps: int = 100,
         if verbose:
             print(f"resuming from {checkpoint_path} at step {start_step}")
 
+    mesh = None
+    if world > 1 and batch_size % world == 0:
+        from lidar_transfer_tpu_torch.parallel import (make_mesh,
+                                                       sharded_train_step)
+
+        # model=1: the batch alone is split (no shard_params_tp here)
+        mesh = make_mesh(model=1)
+        step_fn = sharded_train_step(model, optimizer, mesh)
+        lo, hi = rank * batch_size // world, (rank + 1) * batch_size // world
+    else:
+        def step_fn(batch):
+            return train_step(model, optimizer, batch)
+        lo, hi = 0, batch_size
+
+    def save(step):
+        if rank == 0:
+            save_checkpoint(checkpoint_path, model, mapper, spec,
+                            optimizer=optimizer, step=step,
+                            sampling=sampling)
+        if mesh is not None:
+            dist.barrier(group=mesh.get_group("data"))
+
     rng = np.random.default_rng(seed)
     all_frames = [(si, fi) for si, sq in enumerate(seqs)
                   for fi in range(len(sq))]
@@ -240,8 +271,8 @@ def train_segmentation(dataset: str, *, sequences=("00",), steps: int = 100,
     def load_batch(step):
         frames = [_frame_tensors(seqs[si], fi, spec, capacity, mapper,
                                  device)
-                  for si, fi in (all_frames[k]
-                                 for k in step_picks[step - start_step])]
+                  for si, fi in (all_frames[k] for k in
+                                 step_picks[step - start_step][lo:hi])]
         f, l, w = zip(*frames)
         return dict(features=torch.stack(f), labels=torch.stack(l),
                     weights=torch.stack(w))
@@ -249,20 +280,16 @@ def train_segmentation(dataset: str, *, sequences=("00",), steps: int = 100,
     with Prefetcher(load_batch, range(start_step, steps)) as batches:
         for step, batch in batches:
             # the loss stays on the device; reading it waits for the step
-            loss = train_step(model, optimizer, batch)
+            loss = step_fn(batch)
             if verbose and (step % 10 == 0 or step == steps - 1):
                 print(f"step {step}: loss {float(loss):.4f}")
             if (checkpoint_path and checkpoint_every
                     and (step + 1) % checkpoint_every == 0):
-                save_checkpoint(checkpoint_path, model, mapper, spec,
-                                optimizer=optimizer, step=step + 1,
-                                sampling=sampling)
+                save(step + 1)
     if checkpoint_path:
         # the final state, resumable (a finished run can be extended with
         # a larger ``steps`` and ``resume=True``)
-        save_checkpoint(checkpoint_path, model, mapper, spec,
-                        optimizer=optimizer, step=max(steps, start_step),
-                        sampling=sampling)
+        save(max(steps, start_step))
     return model, mapper, spec
 
 
@@ -439,8 +466,12 @@ def main(argv=None) -> int:
         return 2
 
     if args.cmd == "train":
+        import torch.distributed as dist
+
         from lidar_transfer_tpu_torch.config import TransferConfig
         from lidar_transfer_tpu_torch.models import RangeNetConfig
+        from lidar_transfer_tpu_torch.parallel.multihost import (
+            initialize_from_env)
 
         arch = "tiny" if args.tiny else args.arch
         mapper = LabelMapper.from_labels(dict(TransferConfig().labels))
@@ -448,13 +479,24 @@ def main(argv=None) -> int:
             num_classes=mapper.num_classes)
         if args.remat:
             model_cfg = dataclasses.replace(model_cfg, remat=True)
-        train_segmentation(
-            args.dataset, sequences=tuple(args.sequences),
-            steps=args.steps, batch_size=args.batch_size,
-            learning_rate=args.lr, model_cfg=model_cfg,
-            checkpoint_path=args.out, checkpoint_every=args.save_every,
-            resume=args.resume, device=args.device)
-        print(f"model written to {args.out}")
+        # under torchrun: one rank a process, data-parallel steps
+        joined = initialize_from_env(args.device)
+        device = args.device if joined is None else joined[1]
+        rank = 0 if joined is None else dist.get_rank()
+        if joined is not None and rank == 0:
+            print(f"{dist.get_world_size()} ranks, backend {joined[0]}")
+        try:
+            train_segmentation(
+                args.dataset, sequences=tuple(args.sequences),
+                steps=args.steps, batch_size=args.batch_size,
+                learning_rate=args.lr, model_cfg=model_cfg,
+                checkpoint_path=args.out, checkpoint_every=args.save_every,
+                resume=args.resume, device=device)
+        finally:
+            if joined is not None:
+                dist.destroy_process_group()
+        if rank == 0:
+            print(f"model written to {args.out}")
     elif args.cmd == "infer":
         model, mapper, spec = load_checkpoint(args.model, args.device)
         n = write_predictions(args.dataset, args.out, model, mapper, spec,

@@ -189,12 +189,16 @@ def range_image_features(rng, xyz, remission, mask) -> torch.Tensor:
     return torch.where(mask[..., None], feats, 0.0)
 
 
-def masked_cross_entropy(logits, labels, weights) -> torch.Tensor:
-    """Mean CE over pixels with weight > 0; labels are class indices."""
+def masked_cross_entropy(logits, labels, weights,
+                         total: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean CE over pixels with weight > 0; labels are class indices.
+    ``total``: the weight sum to divide by (a 0-dim tensor; default this
+    batch's), the global batch's where each rank holds a slice of it."""
     logp = torch.log_softmax(logits, dim=-1)
     ll = torch.gather(logp, -1, labels[..., None].long())[..., 0]
     w = weights.to(torch.float32)
-    return -(ll * w).sum() / torch.clamp(w.sum(), min=1.0)
+    total = w.sum() if total is None else total
+    return -(ll * w).sum() / torch.clamp(total, min=1.0)
 
 
 def make_train_state(model: RangeNet, generator: torch.Generator,
@@ -208,13 +212,34 @@ def make_train_state(model: RangeNet, generator: torch.Generator,
 
 
 def train_step(model: RangeNet, optimizer: torch.optim.Optimizer,
-               batch: dict) -> torch.Tensor:
+               batch: dict, group=None) -> torch.Tensor:
     """One Adam step on ``batch`` (features, labels, weights); -> the loss,
-    a device scalar (reading it waits for the device)."""
+    a device scalar (reading it waits for the device).
+
+    ``group``: the process group of a ``DistributedDataParallel`` ``model``
+    whose ranks each hold a slice of the global batch. The loss is then the
+    global batch's: the weight sum is reduced before the backward, and each
+    rank's share is scaled by the rank count, so that DDP's mean of the
+    ranks' gradients is the gradient of the global ratio (a mean of the
+    ranks' own ratios would weigh a pixel by its rank's valid-pixel count).
+    The loss returned is the global one on every rank.
+    """
     optimizer.zero_grad(set_to_none=True)
-    loss = masked_cross_entropy(model(batch["features"]), batch["labels"],
-                                batch["weights"])
-    loss.backward()
+    w = batch["weights"]
+    if group is None:
+        loss = masked_cross_entropy(model(batch["features"]),
+                                    batch["labels"], w)
+        loss.backward()
+    else:
+        import torch.distributed as dist
+
+        total = w.to(torch.float32).sum()
+        dist.all_reduce(total, group=group)
+        loss = masked_cross_entropy(model(batch["features"]),
+                                    batch["labels"], w, total=total)
+        (loss * dist.get_world_size(group)).backward()
+        loss = loss.detach()
+        dist.all_reduce(loss, group=group)
     optimizer.step()
     return loss.detach()
 

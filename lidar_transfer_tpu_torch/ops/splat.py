@@ -197,7 +197,7 @@ def _band_samples_fold(rng_s, pts_s, valid_s, label_s, rem_s, vol_origin,
 
 def _band_samples(tsdf, label, rem, rng_flat, pts_flat, valid_flat,
                   vol_origin, active_dims, voxel_size, samples_per_ray,
-                  label_probe: bool = False):
+                  label_probe: bool = False, x_offset: int = 0):
     """Band candidates probed in the materialised volume, one per ray.
 
     Each ray's K half-voxel steps behind its surface read the nearest
@@ -207,6 +207,15 @@ def _band_samples(tsdf, label, rem, rng_flat, pts_flat, valid_flat,
     label (without ``label_probe``) and the remission are read there
     alone. The volume may be float32 or compact. Returns (pos (HW,3),
     t, tsdf, label i32, rem, found).
+
+    ``x_offset`` (X-slabs, ``parallel/sharding.sharded_band_probe``): the
+    volume and ``active_dims`` are the slab starting at this global x
+    index, and ``vol_origin`` stays the GLOBAL origin. The voxel index is
+    computed against the global origin, the same expression on every slab,
+    and then shifted by the integer offset, so each sample belongs to
+    exactly one slab. A per-slab float origin would round again (0.05 is
+    not exact in float32) and could give a sample on a slab boundary to
+    both neighbours or to neither.
     """
     dev = rng_flat.device
     X, Y, Z = tsdf.shape
@@ -218,6 +227,8 @@ def _band_samples(tsdf, label, rem, rng_flat, pts_flat, valid_flat,
     pos = dirs[None] * t[..., None]                           # (K, HW, 3)
 
     gi = torch.round((pos - vol_origin) / vox).to(torch.int64)
+    if x_offset:
+        gi[..., 0] -= int(x_offset)
     inside = ((gi >= 0) & (gi < active_dims)).all(dim=-1)
     hi = torch.tensor([X - 1, Y - 1, Z - 1], device=dev)
     gic = torch.minimum(torch.clamp(gi, min=0), hi)

@@ -282,8 +282,9 @@ def test_resume_matches_straight_run(synthetic_dataset, tmp_path,
 def test_entry_points_refuse_without_a_card(synthetic_dataset, tmp_path,
                                             monkeypatch, capsys):
     """With no CUDA device the default device raises (no CPU fallback),
-    and each command exits 2 before doing anything; more than one card
-    with ``use_mesh`` raises NotImplementedError naming queue 8."""
+    and each command exits 2 before doing anything; with a card,
+    ``--device-parallel`` outside a torchrun job exits 2 and says so, and a
+    device-parallel cell of another adaption than mergemesh raises."""
     import importlib
 
     gs = importlib.import_module(
@@ -304,11 +305,12 @@ def test_entry_points_refuse_without_a_card(synthetic_dataset, tmp_path,
     assert not os.path.exists(out)
     assert "no CUDA device" in capsys.readouterr().err
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-        TS.train_segmentation(synthetic_dataset, steps=1, model_cfg=TCFG)
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-        grid_search(synthetic_dataset, mesh=object(), device="cpu")
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    assert gs.main(["-d", synthetic_dataset, "--device-parallel"]) == 2
+    assert "torchrun" in capsys.readouterr().err
+    with pytest.raises(ValueError, match="mergemesh only"):
+        evaluate_transfer(synthetic_dataset, small_cfg(), mesh=object(),
+                          device="cpu")
 
 
 def test_cli_train_infer_eval(synthetic_dataset, tmp_path, capsys):

@@ -85,7 +85,8 @@ def test_no_import_of_the_jax_package():
     "lidar_transfer_tpu_torch.experiments.segmentation",
     "lidar_transfer_tpu_torch.experiments.workflows",
     "lidar_transfer_tpu_torch.experiments.compare_datasets",
-    "lidar_transfer_tpu_torch.interop"])
+    "lidar_transfer_tpu_torch.interop", "lidar_transfer_tpu_torch.parallel",
+    "lidar_transfer_tpu_torch.parallel.multihost"])
 def test_fresh_interpreter_loads_neither(module):
     """Importing the port's entry modules in a fresh interpreter leaves
     neither package, nor flax or optax, in ``sys.modules``."""
