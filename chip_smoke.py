@@ -102,7 +102,13 @@
      at step 2, resumed to step 3) and ``grid_search(mesh=...)`` with one
      mergemesh cell of 3 frames at the reference voxel (padded to 4);
      then one NCCL rank's DDP step of bf16 darknet53 at batch 2. A child
-     that fails fails the phase.
+     that fails fails the phase;
+   - the front end: the CLI mergemesh HDL64 -> HDL32 on 4 frames without
+     and with ``--png --html F --profile D`` (row A), ``lt-visualize-torch
+     --html`` with predictions (the labels with every 7th point's changed)
+     on the card and with ``--device cpu`` (rows A and 3), and
+     ``experiments.multiscene`` at 2 scenes of 3 frames, 3 steps (rows A
+     and 3, darknet21's training).
    Every kernel of a path must have launched in its run (the parallel
    path's in each child).
 3. Checks the outputs: files written, the stream equal to the per-frame run,
@@ -151,7 +157,17 @@
    ``train_segmentation`` of 3 steps at batch 2 within the same bounds;
    the device-parallel grid cell's IoU, Acc and MSE equal to the
    sequential ``evaluate_transfer`` of the cell, and its
-   ``grid_search.json`` written; and no jax in any child.
+   ``grid_search.json`` written; and no jax in any child; the front end's
+   scans with and without the flags equal byte for byte, one
+   ``labels_png``/``velodyne_png`` file a frame, each decoded by
+   ``png_decode`` (zlib alone) equal to the port's
+   ``label_image_rgb``/``range_image_rgb`` of that frame's scan, the
+   viewer page's frame records and ``check_js`` on its script, the
+   profiler's Chrome trace with events (its kernel names printed, not
+   required), the viewer's title metrics on the card against the CPU
+   within 1e-6 (MSE 1e-5 relative) and its label and diff rows on
+   >= 99.9 % of pixels, the multi-scene rows' JSONs with their means and
+   stds numpy's over the scenes.
 4. Times each kernel four ways: the wrapper's time (CUDA events around
    back-to-back calls), the device time (the summed durations of the device
    operations of one call, from a ``torch.profiler`` trace), its plain
@@ -183,13 +199,17 @@
    cost, not scaling). Nothing of the earlier paths was cut to make
    room: the frame timings average 10 passes where they took 20.
 
+The front end's wall ms/frame with and without the flags is printed
+beside the GPU's name and power limit.
+
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists the kernels as JSON (route, source, the TPU kernel replaced, launches
 in all and per frame of each path, the largest difference to the plain
 version, wrapper, device, plain, library and bound ms and what bounds it),
 the one before that the GPU's name and power limit. Any failed check
 raises, and the exit code is then nonzero. Without a CUDA device it exits
-with 1 at once. It fails if ``jax`` or the JAX package was imported.
+with 1 at once. It fails if ``jax``, the JAX package, matplotlib or PIL
+was imported (the card machine has neither of the last two).
 """
 
 from __future__ import annotations
@@ -1297,12 +1317,16 @@ def main() -> int:
         torch.cuda.empty_cache()
         paths["parallel"] = _parallel_path(torch, work, tag, per_frame)
         torch.cuda.empty_cache()
+        paths["front_end"] = _front_end_path(torch, work, tag, per_frame)
+        torch.cuda.empty_cache()
     paths["probes"] = per_frame["probes"] = _probe_path(torch, kernels, tag)
     _kernel_cases(torch, kernels, tag)
     check("jax" not in sys.modules, "the port imported jax")
     check(not any(m == "lidar_transfer_tpu"
                   or m.startswith("lidar_transfer_tpu.")
                   for m in sys.modules), "the port imported the JAX package")
+    check(not any(m.split(".")[0] in ("matplotlib", "PIL")
+                  for m in sys.modules), "the port imported matplotlib or PIL")
     for name, call in small.items():
         if kernels[name]["device_ms"] is None:
             # every trace of it lost records above: once more, now that
@@ -2701,6 +2725,228 @@ def _rolling_path(torch, work, kernels, tag, per_frame):
               + ("-" if d_ms is None else f"{1 - d_ms / recast_ms:.3f}")
               + f" {tag}")
     del splat, march
+    return counts
+
+
+def png_decode(data: bytes) -> np.ndarray:
+    """Decode an 8-bit RGB PNG whose rows all take filter 0, as the
+    port's one PNG writer (``webviewer.png_bytes``) writes them, to an
+    (H, W, 3) uint8 array with the standard library (zlib) alone; any
+    other PNG fails the check."""
+    import struct
+    import zlib
+
+    check(data[:8] == b"\x89PNG\r\n\x1a\n", "not a PNG")
+    pos, idat, head = 8, b"", None
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        check(zlib.crc32(kind + body) & 0xFFFFFFFF == struct.unpack(
+            ">I", data[pos + 8 + n:pos + 12 + n])[0], "PNG chunk CRC")
+        if kind == b"IHDR":
+            head = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + n
+    w, h, depth, color, _, _, interlace = head
+    check((depth, color, interlace) == (8, 2, 0), f"PNG header {head}")
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(
+        h, 1 + 3 * w)
+    check(not rows[:, 0].any(), "PNG rows with a filter other than 0")
+    return rows[:, 1:].reshape(h, w, 3).copy()
+
+
+def _html_frames(path):
+    """The frame records of an exported viewer page, after ``check_js``
+    has passed on its script."""
+    import re
+
+    from lidar_transfer_tpu_torch import webviewer
+
+    with open(path) as f:
+        doc = f.read()
+    webviewer.check_js(webviewer.extract_script(doc))
+    return json.loads(re.search(r"^const FRAMES = (.*);$", doc,
+                                re.M).group(1))
+
+
+def _uri_png(uri):
+    import base64
+
+    return png_decode(base64.b64decode(uri.split(",", 1)[1]))
+
+
+def _front_end_path(torch, work, tag, per_frame):
+    """The front end on the HDL64 dataset ``work/kitti``: the port's CLI
+    mergemesh HDL64 -> HDL32 on 4 frames without and with ``--png --html
+    --profile`` (row A in the transfer and in the viewer's source
+    projections; the dims differ, so no metrics), ``lt-visualize-torch
+    --html --predictions`` on the card against ``--device cpu`` (rows A
+    and 3), and ``experiments.multiscene`` at 2 scenes, 3 steps, 3 frames
+    (rows A and 3 and the RangeNet training). Returns the launch counts
+    of the phase."""
+    import shutil
+
+    from lidar_transfer_tpu_torch import _build, visualize
+    from lidar_transfer_tpu_torch.config import HDL64, SensorSpec
+    from lidar_transfer_tpu_torch.datasets import kitti
+    from lidar_transfer_tpu_torch.experiments import multiscene
+    from lidar_transfer_tpu_torch.pipeline import deform as TD
+    from lidar_transfer_tpu_torch.pipeline.multiscan import load_window
+    from lidar_transfer_tpu_torch.utils.images import (label_image_rgb,
+                                                       range_image_rgb)
+
+    dev = torch.device("cuda")
+    cfg, base = _config(work, "front")
+    base += ["-t", HDL32_PATH, "--frames", "4"]
+    hdl32 = SensorSpec.from_yaml(HDL32_PATH)
+    html = os.path.join(work, "front.html")
+    prof = os.path.join(work, "front_prof")
+
+    _build.reset_launch_counts()
+    t = time.perf_counter()
+    out_a, m_a, _ = _run_cli(work, base, "front_plain")
+    wall_a = (time.perf_counter() - t) * 1e3 / len(m_a)
+    before = _build.launch_counts()
+    t = time.perf_counter()
+    out_b, m_b, text = _run_cli(work, base, "front_flags", "--png", "--html",
+                                html, "--profile", prof)
+    wall_b = (time.perf_counter() - t) * 1e3 / len(m_b)
+    per_frame["front_end"] = _launches_since(before, len(m_b))
+    check(len(m_a) == len(m_b) == 4, "front end: 4 frames a run")
+    check(f"profiler trace in {prof}" in text, "front end: --profile line")
+    med = [1e3 * float(np.median([fm["seconds"] for fm in ms[1:]]))
+           for ms in (m_a, m_b)]
+    print(f"front end CLI HDL64->HDL32, 4 frames: {wall_a:.1f} ms/frame "
+          f"wall without the flags, {wall_b:.1f} with --png --html "
+          f"--profile (engine set-up included); the median frame of "
+          f"frames 1-3 {med[0]:.1f} and {med[1]:.1f} ms {tag}")
+    _same_files(out_a, out_b, "--png --html --profile changed the scans")
+    print("front end: the scans with and without the flags are equal byte "
+          "for byte")
+
+    # the PNGs, decoded here, against the port's renders of each frame
+    seq, cap = _sequence(work)
+    eng = TD.TransferEngine(HDL64, hdl32, cfg, fixed_bounds=True,
+                            device=dev)
+    png_root = os.path.join(out_b, "sequences", "00")
+    for sub in ("labels_png", "velodyne_png"):
+        check(sorted(os.listdir(os.path.join(png_root, sub)))
+              == [f"{fm['index']:06d}.png" for fm in m_b],
+              f"front end: one {sub} file a frame")
+    for fm in m_b:
+        vs = eng.transfer_fast(load_window(seq, cfg, fm["index"], cap, dev))
+        name = f"{fm['index']:06d}.png"
+        for sub, want in (
+                ("labels_png", label_image_rgb(vs.label.cpu().numpy(), cfg)),
+                ("velodyne_png", range_image_rgb(vs.range.cpu().numpy()))):
+            with open(os.path.join(png_root, sub, name), "rb") as f:
+                got = png_decode(f.read())
+            check(got.shape == (hdl32.H, hdl32.W, 3)
+                  and np.array_equal(got, want), f"front end: {sub}/{name}")
+    print(f"front end: {2 * len(m_b)} PNGs decode to the port's renders of "
+          "their frames")
+    del eng
+
+    frames = _html_frames(html)
+    check(len(frames) == 4 and all(f["virt"]["n"] > 0 and f["src"]["n"] > 0
+                                   for f in frames),
+          "front end: --html frame records")
+    with open(os.path.join(prof, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    check(len(events) > 0, "front end: empty profiler trace")
+    names = sorted({e["name"] for e in events
+                    if e.get("cat") == "kernel"})
+    print(f"front end: {len(frames)} frames in the viewer page "
+          f"({os.path.getsize(html) / 1e6:.1f} MB), check_js passed; "
+          f"trace {len(events)} events, kernels "
+          f"{[n[:48] for n in names]}")
+
+    # lt-visualize-torch --html with predictions, card against CPU
+    pred_dir = os.path.join(work, "front_pred", "sequences", "00",
+                            "predictions")
+    os.makedirs(pred_dir)
+    for i in range(len(seq)):
+        lbl = seq.read(i)[2].copy()
+        lbl[::7] = 40
+        kitti.write_label_file(os.path.join(pred_dir, f"{i:06d}.label"), lbl)
+    viz = {}
+    before = _build.launch_counts()
+    for device in ("cuda", "cpu"):
+        out = os.path.join(work, f"front_viz_{device}.html")
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = visualize.main(["-d", os.path.join(work, "kitti"), "-p",
+                                 os.path.join(work, "front_pred"), "--html",
+                                 out, "--frames", "2", "--device", device])
+        check(rc == 0, f"lt-visualize-torch --device {device} exit {rc}")
+        viz[device] = _html_frames(out)
+        print(f"lt-visualize-torch --html --device {device}: 2 frames "
+              f"{(time.perf_counter() - t) * 1e3 / 2:.1f} ms/frame wall "
+              f"{tag}")
+        if device == "cuda":
+            per_frame["front_end.visualize"] = _launches_since(before, 2)
+    for a, b in zip(viz["cuda"], viz["cpu"]):
+        ma, mb = ([float(x) for x in r["title"].split()[1::2]]
+                  for r in (a, b))
+        print(f"visualize {a['name']}: card '{a['title']}', CPU "
+              f"'{b['title']}'")
+        check(abs(ma[0] - mb[0]) <= 1e-6 and abs(ma[1] - mb[1]) <= 1e-6
+              and abs(ma[2] - mb[2]) <= 1e-5 * max(abs(mb[2]), 1e-30),
+              "visualize: card and CPU title metrics")
+        check(0 < ma[0] < 1, "visualize: the predictions' diff is empty")
+        rows = {r["name"]: r for r in b["rows"]}
+        for r in a["rows"]:
+            if r["name"] in ("src labels", "virt labels", "diff"):
+                x, y = _uri_png(r["png"]), _uri_png(rows[r["name"]]["png"])
+                share = float((x == y).all(-1).mean())
+                check(share >= 0.999, f"visualize {r['name']}: card and CPU "
+                      f"agree on {share:.6f} of pixels")
+    print("visualize --predictions: card and CPU title metrics and label "
+          "and diff rows agree")
+
+    # the multi-scene rows, cut to 2 scenes of 3 frames and 3 steps
+    torch.cuda.empty_cache()
+    ms_work = os.path.join(work, "multiscene")
+    t = time.perf_counter()
+    before = _build.launch_counts()
+    check(multiscene.main(["--scenes", "2", "--steps", "3", "--frames", "3",
+                           "--work", ms_work]) == 0, "multiscene exit code")
+    ms_launches = _launches_since(before)
+    rows_dir = os.path.join(ms_work, "rows")
+    check(sorted(os.listdir(rows_dir)) == sorted(
+        f"{r[0]}.json" for r in multiscene.ROWS), "multiscene: row files")
+    for name, _, _ in multiscene.ROWS:
+        with open(os.path.join(rows_dir, f"{name}.json")) as f:
+            row = json.load(f)
+        check(len(row["per_scene"]) == 2
+              and row["backend"] == torch.cuda.get_device_name(0),
+              f"multiscene {name}: scenes and backend")
+        for key in ("miou", "miou_present", "acc"):
+            vals = [r[key] for r in row["per_scene"]]
+            check(np.isfinite(vals).all() and row[key] == float(np.mean(
+                vals)) and row[key + "_std"] == float(np.std(vals)),
+                f"multiscene {name}: {key} aggregate")
+        print(f"multiscene {name} (2 scenes, 3 steps): miou_present "
+              f"{row['miou_present']:.4f} ± {row['miou_present_std']:.4f}, "
+              f"acc {row['acc']:.4f} ± {row['acc_std']:.4f}")
+    print(f"multiscene at 2 scenes x 3 frames, 3 steps: "
+          f"{time.perf_counter() - t:.1f} s wall, launches {ms_launches} "
+          f"{tag}")
+    shutil.rmtree(ms_work)
+    counts = _build.launch_counts()
+    print(f"launches on the front-end path: {counts}")
+    # mergemesh defers its volume to fused_state(), which no front-end
+    # entry point calls: rows A and 3 are the phase's kernels
+    for k in ("zbuffer", "confusion"):
+        check(counts[k] > 0, f"kernel {k} never launched on the front-end "
+              "path")
+    for key in ("front_end", "front_end.visualize"):
+        check(per_frame[key].get("zbuffer", 0) > 0,
+              f"{key}: no z-buffer launch")
+    check(per_frame["front_end.visualize"].get("confusion", 0) > 0
+          and ms_launches.get("confusion", 0) > 0,
+          "front end: no confusion launch in the viewer or the rows")
     return counts
 
 

@@ -8,7 +8,9 @@ denser than the source or not:
   python -m lidar_transfer_tpu_torch.cli -d DATASET [-c CFG.yaml] [-s SEQ]
       [-t TARGET.yaml] [-o OFFSET] [-p OUT] [-b] [-w] [--one_scan]
       [--frames N] [--fixed-bounds] [--metrics-json F] [--stream N]
-      [--ply DIR] [--rolling-shutter] [--device cuda|cpu]
+      [--ply DIR] [--rolling-shutter] [--png] [--html OUT.html]
+      [--html-frames N] [--html-max-points N] [--profile DIR]
+      [--device cuda|cpu]
 
 It prints the same "IoU:", "Acc:", "MSE: " and "Took: ...s" lines (the
 metric lines when source and target image dims agree) and writes the
@@ -20,7 +22,15 @@ re-casts each mesh or mergemesh frame with the rays of a sensor that moves
 while it spins, by the next scan's pose
 (``TransferEngine.resynthesize_rolling_shutter``; the last scan of the
 sequence, which has no next pose, stays static); it needs the per-frame
-path too. Per frame it runs
+path too. ``--png`` writes label and range renders of each virtual scan
+(``<out>/sequences/<seq>/labels_png`` and ``velodyne_png``, through
+``utils/images``), with or without ``-w``. ``--html OUT.html`` writes the
+standalone WebGL viewer (``webviewer.export_html``) of the first
+``--html-frames`` frames, source beside virtual scan with the
+``interactive.frame_payload`` title metrics; it turns ``--stream`` off.
+``--profile DIR`` records the frame loop with ``torch.profiler`` (CPU and,
+on the card, CUDA activities) and writes a Chrome trace,
+``DIR/trace.json``, also when the loop raises. Per frame it runs
 ``TransferEngine.transfer_fast``, which for cp is ``transfer``, cp's
 exact-identity path. It runs on the card unless
 ``--device cpu`` is given; without a CUDA device it refuses to start.
@@ -41,6 +51,7 @@ import torch
 from lidar_transfer_tpu_torch.config import (SensorSpec, TransferConfig,
                                              make_color_lut)
 from lidar_transfer_tpu_torch.datasets import kitti
+from lidar_transfer_tpu_torch.interactive import frame_payload
 from lidar_transfer_tpu_torch.metrics.compare import compare_scans
 from lidar_transfer_tpu_torch.ops import projection as P
 from lidar_transfer_tpu_torch.pipeline.deform import TransferEngine
@@ -49,8 +60,10 @@ from lidar_transfer_tpu_torch.pipeline.multiscan import (load_window,
                                                          min_start_index,
                                                          stack_windows)
 from lidar_transfer_tpu_torch.pipeline.writer import write_virtual_scan
+from lidar_transfer_tpu_torch.utils.images import save_virtual_scan_pngs
 from lidar_transfer_tpu_torch.utils.prefetch import Prefetcher
 from lidar_transfer_tpu_torch.utils.runtime import StageTimer
+from lidar_transfer_tpu_torch.webviewer import export_html
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -89,19 +102,38 @@ def build_parser() -> argparse.ArgumentParser:
                         "originate at the per-column interpolated sensor "
                         "pose (uses the next scan's pose; turns --stream "
                         "off).")
+    p.add_argument("--png", action="store_true",
+                   help="Export label/range PNGs of each virtual scan.")
+    p.add_argument("--html", type=str, default=None, metavar="OUT.html",
+                   help="Write a standalone interactive WebGL viewer of "
+                        "the first --html-frames transfers (linked "
+                        "source|virtual 3D views, image rows, label "
+                        "diff, IoU/Acc/MSE title; n/b/q/1/2/3 keys; "
+                        "turns --stream off).")
+    p.add_argument("--html-frames", type=int, default=4,
+                   help="Frames embedded in --html (default 4).")
+    p.add_argument("--html-max-points", type=int, default=300_000,
+                   help="Per-cloud point cap embedded in --html.")
+    p.add_argument("--profile", type=str, default=None, metavar="DIR",
+                   help="Record the frame loop with torch.profiler and "
+                        "write a Chrome trace into DIR.")
     p.add_argument("--device", type=str, default="cuda",
                    help="Torch device (default cuda; cpu only when asked "
                         "for).")
     return p
 
 
-def _source_metrics(window, vs, source, eng) -> dict:
-    """Compare the window's primary scan, projected at the source spec,
-    with the virtual scan (one frame, unbatched)."""
-    src = P.range_project(
+def _source_image(window, source, eng):
+    """The window's primary scan projected at the source spec."""
+    return P.range_project(
         window.points[0], window.remissions[0], window.labels[0],
         window.valid[0], H=source.H, W=source.W, fov_up_deg=source.fov_up,
         fov_down_deg=source.fov_down, beam_angles=eng.s_beam_angles)
+
+
+def _source_metrics(src, vs) -> dict:
+    """Compare the source image ``src`` with the virtual scan (one frame,
+    unbatched)."""
     res = compare_scans(src.label, src.mask, src.range,
                         torch.clamp(src.remission, min=0.0),
                         vs.label, vs.range, vs.remission)
@@ -121,8 +153,8 @@ def main(argv=None) -> int:
         return 2
     if args.stream < 0:
         raise SystemExit(f"--stream must be >= 0, got {args.stream}")
-    if args.stream and (args.ply or args.rolling_shutter):
-        print("--stream disabled: --rolling-shutter/--ply need the "
+    if args.stream and (args.ply or args.rolling_shutter or args.html):
+        print("--stream disabled: --rolling-shutter/--ply/--html need the "
               "per-frame path")
         args.stream = 0
 
@@ -150,8 +182,9 @@ def main(argv=None) -> int:
     capacity = kitti.scan_capacity(probe)
 
     out_path = None
-    if args.write:
-        out_path = kitti.make_output_dirs(args.output, args.sequence)
+    if args.write or args.png:
+        out_path = kitti.make_output_dirs(args.output, args.sequence,
+                                          write_png=args.png)
         copy2(target_path, out_path)
         if args.config:
             copy2(args.config, out_path)
@@ -224,12 +257,23 @@ def main(argv=None) -> int:
            (make_color_lut(cfg.color_map_bgr)[:, ::-1] * 255).astype(
                np.uint8))
     all_metrics = []
+    html_frames = []
+    prof = None
+    if args.profile:
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=activities)
+        prof.start()
+    # an exception mid-run still stops the profiler and writes the trace
     try:
         for n_done, (i, window, vs, timer, t0) in enumerate(
                 frame_results(), start=1):
             frame_metrics = {"index": i, "adaption": vs.adaption}
+            src = None
             if same_dims:
-                m = _source_metrics(window, vs, source, eng)
+                src = _source_image(window, source, eng)
+                m = _source_metrics(src, vs)
                 iou, present = m["iou_per_class"], m["present"]
                 print("IoU class: ", (iou[present] * 100).astype(int))
                 print("IoU: ", m["iou"])
@@ -241,6 +285,19 @@ def main(argv=None) -> int:
                 with timer.span("write", 1):
                     frame_metrics["points_written"] = write_virtual_scan(
                         out_path, i, vs)
+            if args.png:
+                save_virtual_scan_pngs(out_path, i, vs._replace(
+                    label=vs.label.cpu().numpy(),
+                    range=vs.range.cpu().numpy()), cfg)
+            if args.html and len(html_frames) < args.html_frames:
+                # the metrics branch's source projection where it ran
+                src_ri = (src if src is not None
+                          else _source_image(window, source, eng))
+                val = window.valid[0]
+                html_frames.append((f"{args.sequence}_{i:06d}", frame_payload(
+                    src_ri, cfg, virtual=vs,
+                    source_points=window.points[0][val],
+                    source_labels=window.labels[0][val])))
             if args.ply and cfg.adaption in ("mesh", "mergemesh"):
                 os.makedirs(args.ply, exist_ok=True)
                 frame_metrics["triangles"] = eng.export_mesh(
@@ -255,6 +312,19 @@ def main(argv=None) -> int:
                       len(seq), "#" * 30)
     finally:
         windows_ahead.close()
+        if prof is not None:
+            prof.stop()
+            os.makedirs(args.profile, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(args.profile, "trace.json"))
+            print(f"profiler trace in {args.profile}")
+
+    if args.html and html_frames:
+        out = export_html(
+            html_frames, args.html,
+            title=f"{source.name} → {target.name} ({cfg.adaption})",
+            max_points=args.html_max_points)
+        print(f"wrote {out} ({os.path.getsize(out) / 1e6:.1f} MB, "
+              f"{len(html_frames)} frames)")
 
     if args.metrics_json:
         with open(args.metrics_json, "w") as f:

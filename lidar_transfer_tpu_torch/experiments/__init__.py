@@ -5,6 +5,7 @@ runs in-process with structured results.
   segmentation      RangeNet train / infer / eval
   compare_datasets  per-class point histograms across datasets
   workflows         fake_on_fake / fake_on_real / real_on_fake pipelines
+  multiscene        the workflow rows as mean ± std over urban scenes
 """
 
 from lidar_transfer_tpu_torch.experiments.grid_search import (  # noqa: F401

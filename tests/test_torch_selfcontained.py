@@ -86,13 +86,39 @@ def test_no_import_of_the_jax_package():
     "lidar_transfer_tpu_torch.experiments.workflows",
     "lidar_transfer_tpu_torch.experiments.compare_datasets",
     "lidar_transfer_tpu_torch.interop", "lidar_transfer_tpu_torch.parallel",
-    "lidar_transfer_tpu_torch.parallel.multihost"])
+    "lidar_transfer_tpu_torch.parallel.multihost",
+    "lidar_transfer_tpu_torch.visualize", "lidar_transfer_tpu_torch.webviewer",
+    "lidar_transfer_tpu_torch.interactive",
+    "lidar_transfer_tpu_torch.datasets.convert",
+    "lidar_transfer_tpu_torch.experiments.multiscene"])
 def test_fresh_interpreter_loads_neither(module):
     """Importing the port's entry modules in a fresh interpreter leaves
     neither package, nor flax or optax, in ``sys.modules``."""
     code = (f"import sys, {module}\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('lidar_transfer_tpu', 'jax', 'jaxlib', 'flax', 'optax')]\n"
+            "print(bad)\nsys.exit(1 if bad else 0)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+@pytest.mark.parametrize("module", [
+    "lidar_transfer_tpu_torch.cli", "lidar_transfer_tpu_torch.visualize",
+    "lidar_transfer_tpu_torch.webviewer"])
+def test_front_end_loads_no_matplotlib_or_pil(module):
+    """The front end's entry modules, imported in a fresh interpreter, load
+    neither matplotlib nor PIL (the card machine has neither): the viridis
+    table is a constant of ``utils/images`` and PNGs go through
+    ``webviewer.png_bytes``; a viridis render and a PNG written do not
+    load them either."""
+    code = (f"import sys, {module}\n"
+            "import numpy as np\n"
+            "from lidar_transfer_tpu_torch.utils import images\n"
+            "from lidar_transfer_tpu_torch.webviewer import png_bytes\n"
+            "png_bytes(images.range_image_rgb(np.ones((4, 8))))\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('matplotlib', 'PIL')]\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
