@@ -108,7 +108,16 @@
      --html`` with predictions (the labels with every 7th point's changed)
      on the card and with ``--device cpu`` (rows A and 3), and
      ``experiments.multiscene`` at 2 scenes of 3 frames, 3 steps (rows A
-     and 3, darknet21's training).
+     and 3, darknet21's training);
+   - the runners ported from ``scripts/``: ``experiments.grids full`` at
+     frames [1, 20] x voxel [0.25, 0.04], one frame a cell, on a 20-scan
+     HDL64 64x2048 sequence (rows A and 3), ``grids multiscene`` at 2
+     urban scenes x 1 cell, ``experiments.upsample`` at 20 steps and 4
+     frames of 32 -> 64 beams at width 512 (row A in the transfer, the
+     training and the predictions, row 3 in the evaluation), and
+     ``probes.train_levers`` on darknet53 (batch 2, 64x2048) at 5 steps a
+     variant (base, remat, mu_bf16, remat_mu_bf16), each printing its rows
+     A and 3 launches a frame and the phase its wall time.
    Every kernel of a path must have launched in its run (the parallel
    path's in each child).
 3. Checks the outputs: files written, the stream equal to the per-frame run,
@@ -167,7 +176,14 @@
    required), the viewer's title metrics on the card against the CPU
    within 1e-6 (MSE 1e-5 relative) and its label and diff rows on
    >= 99.9 % of pixels, the multi-scene rows' JSONs with their means and
-   stds numpy's over the scenes.
+   stds numpy's over the scenes; the grid's JSON with the card's name and
+   power limit, its cell (1 scan, 0.25 m) against ``evaluate_transfer`` on
+   the port's CPU (iou and acc within 1e-3, mse within 1e-4 relative: the
+   bounds of ``tests/test_torch_grids.py``), the multi-scene cell's
+   ``_std``, ``_min`` and ``_max`` numpy's over its sequences, the
+   upsampling rows finite over the 4 scans, and remat's final loss
+   against base's (and remat_mu_bf16's against mu_bf16's) within
+   ``REMAT_LOSS_RTOL`` relative.
 4. Times each kernel four ways: the wrapper's time (CUDA events around
    back-to-back calls), the device time (the summed durations of the device
    operations of one call, from a ``torch.profiler`` trace), its plain
@@ -1318,6 +1334,8 @@ def main() -> int:
         paths["parallel"] = _parallel_path(torch, work, tag, per_frame)
         torch.cuda.empty_cache()
         paths["front_end"] = _front_end_path(torch, work, tag, per_frame)
+        torch.cuda.empty_cache()
+        paths["runners"] = _runners_path(torch, work, tag, per_frame)
         torch.cuda.empty_cache()
     paths["probes"] = per_frame["probes"] = _probe_path(torch, kernels, tag)
     _kernel_cases(torch, kernels, tag)
@@ -2949,6 +2967,161 @@ def _front_end_path(torch, work, tag, per_frame):
           "front end: no confusion launch in the viewer or the rows")
     return counts
 
+
+#: remat's loss against base's on the card after the same 7 steps from the
+#: same weights, relative: cuDNN's backward may sum in another order when
+#: the blocks are recomputed (equal bit for bit on an NVIDIA H100 80GB
+#: HBM3 at 700.00 W)
+REMAT_LOSS_RTOL = 1e-3
+#: a grid cell's iou and acc, card against the port's CPU
+#: (``tests/test_torch_grids.py``'s bound), and mse relative
+GRID_ABS, GRID_MSE_REL = 1e-3, 1e-4
+
+
+def _runners_path(torch, work, tag, per_frame):
+    """The runners ported from ``scripts/``, on the card:
+    ``experiments.grids full`` at cut axes (frames [1, 20] x voxel [0.25,
+    0.04], one frame a cell, a 20-scan HDL64 64x2048
+    ``Scene.default()`` sequence) with its cell at 1
+    scan and 0.25 m held against ``evaluate_transfer`` on the port's CPU,
+    ``grids multiscene`` at 2 urban scenes x 1 cell (the ``_std``,
+    ``_min`` and ``_max`` columns numpy's over the sequences),
+    ``experiments.upsample`` at 20 steps and 4 frames of 32 -> 64 beams at
+    width 512, and ``probes.train_levers`` on darknet53 (batch 2,
+    64x2048x5) at 5 timed steps a variant, remat's loss held to base's
+    within ``REMAT_LOSS_RTOL``. Prints rows A and 3's launches per frame
+    on each runner and the phase's wall time. Returns the launch counts of
+    the phase."""
+    import dataclasses
+    import shutil
+
+    from lidar_transfer_tpu_torch import _build
+    from lidar_transfer_tpu_torch.config import TransferConfig
+    from lidar_transfer_tpu_torch.experiments import grids, upsample
+    from lidar_transfer_tpu_torch.experiments.grid_search import (
+        evaluate_transfer)
+    from lidar_transfer_tpu_torch.probes import train_levers
+
+    t_phase = time.perf_counter()
+    root = os.path.join(work, "runners")
+    _build.reset_launch_counts()
+
+    # grids full at cut axes; the dataset's 20 scans take the 20-scan
+    # window's one frame
+    gw = os.path.join(root, "full")
+    before = _build.launch_counts()
+    t = time.perf_counter()
+    check(grids.main(["full", "--frames-list", "1", "20", "--voxel-sizes",
+                      "0.25", "0.04", "--frames-per-cell", "1",
+                      "--n-scans", "20", "--work", gw]) == 0,
+          "grids full exit code")
+    per_frame["runners.grids_full"] = _launches_since(before, 4)
+    with open(os.path.join(gw, "grid", "grid_search.json")) as f:
+        full = json.load(f)
+    check(full["device"] == gpu_line() and len(full["cells"]) == 4
+          and all(np.isfinite([c[k] for k in ("iou", "acc", "mse")]).all()
+                  and c["sequences"]["00"]["frames"] == 1
+                  for c in full["cells"]), "grids full: cells and device")
+    print(f"grids full, frames [1, 20] x voxel [0.25, 0.04], 1 frame a "
+          f"cell: {time.perf_counter() - t:.1f} s wall (the 20-scan "
+          f"dataset's generation included) {tag}")
+    cell = full["cells"][0]
+    cfg = dataclasses.replace(TransferConfig(), number_of_scans=1,
+                              voxel_size=0.25)
+    t = time.perf_counter()
+    cpu = evaluate_transfer(os.path.join(gw, "grid_ds64"), cfg, frames=1,
+                            device="cpu")
+    print(f"the cell on the port's CPU: {time.perf_counter() - t:.1f} s")
+    d = {k: abs(cell[k] - cpu[k]) for k in ("iou", "acc", "mse")}
+    print(f"grids full cell (1, 0.25): card iou {cell['iou']:.6f} acc "
+          f"{cell['acc']:.6f} mse {cell['mse']:.4f}; CPU iou "
+          f"{cpu['iou']:.6f} acc {cpu['acc']:.6f} mse {cpu['mse']:.4f}; "
+          f"|diff| {d}")
+    check(d["iou"] <= GRID_ABS and d["acc"] <= GRID_ABS
+          and d["mse"] <= GRID_MSE_REL * abs(cpu["mse"]),
+          "grids full: the card's cell against the CPU's")
+
+    # grids multiscene at 2 urban scenes x 1 cell
+    before = _build.launch_counts()
+    t = time.perf_counter()
+    mw = os.path.join(root, "multiscene")
+    check(grids.main(["multiscene", "--scenes", "2", "--frames-list", "1",
+                      "--voxel-sizes", "0.05", "--n-scans", "1", "--work",
+                      mw]) == 0, "grids multiscene exit code")
+    per_frame["runners.grids_multiscene"] = _launches_since(before, 2)
+    with open(os.path.join(mw, "grid", "grid_search.json")) as f:
+        (ms,) = json.load(f)["cells"]
+    for k in ("iou", "acc", "mse"):
+        vals = [ms["sequences"][q][k] for q in ("00", "01")]
+        check(np.isfinite(vals).all() and ms[k + "_std"] == float(np.std(
+            vals)) and ms[k + "_min"] == min(vals)
+              and ms[k + "_max"] == max(vals),
+              f"grids multiscene: {k} columns")
+    print(f"grids multiscene, 2 urban scenes x (1, 0.05): iou "
+          f"{ms['iou']:.4f} ± {ms['iou_std']:.4f}, acc {ms['acc']:.4f} ± "
+          f"{ms['acc_std']:.4f}, {time.perf_counter() - t:.1f} s wall {tag}")
+
+    # the upsampling workflow, 32 -> 64 beams at width 512
+    before = _build.launch_counts()
+    t = time.perf_counter()
+    uw = os.path.join(root, "upsample")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = upsample.main(["--steps", "20", "--frames", "4", "--work", uw])
+    check(rc == 0, "upsample exit code")
+    # 4 scans transferred, 3 x 20 steps of batch 2 trained, 3 x 4 scans
+    # predicted and scored: counted over the 4 frames of the dataset
+    per_frame["runners.upsample"] = _launches_since(before, 4)
+    for name in ("fake64_on_real64", "real32_on_real64",
+                 "real64_on_fake64"):
+        with open(os.path.join(uw, "rows", f"{name}.json")) as f:
+            row = json.load(f)
+        check(row["scans"] == 4 and np.isfinite(row["miou_present"])
+              and 0 < row["acc"] <= 1, f"upsample {name}: {row}")
+        print(f"upsample {name} (20 steps, 4 frames): miou_present "
+              f"{row['miou_present']:.4f}, acc {row['acc']:.4f}")
+    print(f"upsample 32 -> 64 beams at width 512: "
+          f"{time.perf_counter() - t:.1f} s wall {tag}")
+    shutil.rmtree(root)
+
+    # the train-step levers on darknet53 (the device time, which takes
+    # traced steps, is the probe's own: python -m
+    # lidar_transfer_tpu_torch.probes.train_levers)
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    rows = {}
+    for variant in train_levers.VARIANTS:
+        r = train_levers.run_variant("darknet53", variant, iters=5,
+                                     device="cuda", device_time=False)
+        rows[variant] = r
+        check(np.isfinite(r["final_loss"]) and r["mfu"] > 0,
+              f"train_levers {variant}: {r}")
+        print(f"train_levers darknet53 {variant}: {r['step_ms']:.3f} "
+              f"ms/step (min {r['step_ms_min']:.3f}, max "
+              f"{r['step_ms_max']:.3f}), peak {r['peak_gib']:.2f} GiB, "
+              f"mfu {r['mfu']:.4f}, loss {r['final_loss']:.6f} {tag}")
+        torch.cuda.empty_cache()
+    print(f"train_levers, 4 variants: {time.perf_counter() - t:.1f} s "
+          "wall")
+    for a, b in (("remat", "base"), ("remat_mu_bf16", "mu_bf16")):
+        rel = (abs(rows[a]["final_loss"] - rows[b]["final_loss"])
+               / abs(rows[b]["final_loss"]))
+        print(f"train_levers: {a}'s loss against {b}'s, relative "
+              f"{rel:.3e} (bound {REMAT_LOSS_RTOL})")
+        check(rel <= REMAT_LOSS_RTOL, f"train_levers: {a}'s loss is not "
+              f"{b}'s")
+
+    counts = _build.launch_counts()
+    for key in ("runners.grids_full", "runners.grids_multiscene",
+                "runners.upsample"):
+        pf = per_frame[key]
+        print(f"{key}: zbuffer {pf.get('zbuffer', 0):.2f}, confusion "
+              f"{pf.get('confusion', 0):.2f} launches a frame")
+        check(pf.get("zbuffer", 0) > 0 and pf.get("confusion", 0) > 0,
+              f"{key}: rows A and 3 not both launched")
+    print(f"launches on the runners' path: {counts}; the phase "
+          f"{time.perf_counter() - t_phase:.1f} s wall {tag}")
+    return counts
 
 def _segmentation_path(torch, work, tag, per_frame):
     """``lt-seg``'s path on the dataset ``work/kitti`` (HDL64, 64x2048):

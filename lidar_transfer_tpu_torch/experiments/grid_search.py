@@ -148,12 +148,16 @@ def grid_search(dataset: str, *, frames_list=(1, 2, 3),
     rank = (dist.get_rank()
             if dist.is_available() and dist.is_initialized() else 0)
     base = base_cfg or TransferConfig()
+    cuda = torch.device(device).type == "cuda"
     cells = []
     for nscans in frames_list:
         for voxel in voxel_sizes:
             cfg = dataclasses.replace(base, adaption=adaption,
                                       number_of_scans=int(nscans),
                                       voxel_size=float(voxel))
+            if cuda:
+                torch.cuda.reset_peak_memory_stats(device)
+            t0 = time.perf_counter()
             per_seq = [evaluate_transfer(dataset, cfg, sequence=seq,
                                          offset=offset,
                                          frames=frames_per_cell,
@@ -161,6 +165,7 @@ def grid_search(dataset: str, *, frames_list=(1, 2, 3),
                                          mesh=mesh, mesh_attrs=mesh_attrs,
                                          device=device)
                        for seq in sequences]
+            wall = time.perf_counter() - t0
             cell = {"number_of_scans": int(nscans),
                     "voxel_size": float(voxel),
                     "sequences": dict(zip(sequences, per_seq))}
@@ -178,7 +183,13 @@ def grid_search(dataset: str, *, frames_list=(1, 2, 3),
             if verbose and rank == 0:
                 msg = ", ".join(f"{k}={cell[k]:.4f}"
                                 for k in ("iou", "acc", "mse") if k in cell)
-                print(f"nscans={nscans} voxel={voxel}: {msg}")
+                # the cell's wall time and, on the card, its peak memory
+                peak = ""
+                if cuda:
+                    gib = torch.cuda.max_memory_allocated(device) / 2**30
+                    peak = f", peak {gib:.2f} GiB"
+                print(f"nscans={nscans} voxel={voxel}: {msg} "
+                      f"({wall:.2f} s{peak})")
 
     result = {"grid": {"frames_list": list(frames_list),
                        "voxel_sizes": list(voxel_sizes),
@@ -193,14 +204,20 @@ def grid_search(dataset: str, *, frames_list=(1, 2, 3),
                        "mesh_attrs": mesh_attrs},
               "cells": cells}
     if out_dir and rank == 0:
-        os.makedirs(out_dir, exist_ok=True)
-        with open(os.path.join(out_dir, "grid_search.json"), "w") as f:
-            json.dump(result, f, indent=2)
-        for metric in ("iou", "acc", "mse"):
-            if any(metric in c for c in cells):
-                _heatmap(result, metric,
-                         os.path.join(out_dir, f"heatmap_{metric}.svg"))
+        write_grid(result, out_dir)
     return result
+
+
+def write_grid(result: dict, out_dir: str) -> None:
+    """Write ``result`` as ``out_dir/grid_search.json`` and its heat maps
+    ``heatmap_{iou,acc,mse}.svg``."""
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "grid_search.json"), "w") as f:
+        json.dump(result, f, indent=2)
+    for metric in ("iou", "acc", "mse"):
+        if any(metric in c for c in result["cells"]):
+            _heatmap(result, metric,
+                     os.path.join(out_dir, f"heatmap_{metric}.svg"))
 
 
 def _heatmap(result: dict, metric: str, out_file: str) -> None:

@@ -147,13 +147,22 @@ def rangenet_state_dict(params: dict, cfg: RangeNetConfig
     return out
 
 
-def adam_state_from_optax(optimizer: torch.optim.Adam, model: RangeNet,
-                          mu: dict, nu: dict, count) -> dict:
+def adam_state_from_optax(optimizer: torch.optim.Optimizer,
+                          model: RangeNet, mu: dict, nu: dict,
+                          count) -> dict:
     """optax Adam state of ``model``'s flax counterpart (``mu``, ``nu``:
     parameter-shaped trees; ``count``: the step) -> a state dict for
     ``optimizer.load_state_dict`` (``exp_avg``, ``exp_avg_sq``, ``step``)
-    on the parameters' devices. Raises as :func:`rangenet_state_dict`."""
+    on the parameters' devices. A bfloat16 ``mu`` (``optax.adam(...,
+    mu_dtype=jnp.bfloat16)``) comes across as a bfloat16 ``exp_avg``,
+    value for value, for ``models.BF16MomentAdam``. Raises as
+    :func:`rangenet_state_dict`."""
+    bf16 = {np.asarray(a).dtype.name
+            for a in _flatten(mu).values()} == {"bfloat16"}
     m = rangenet_state_dict(mu, model.cfg)
+    if bf16:
+        # float32 holds every bfloat16 value: back to bfloat16 exactly
+        m = {k: t.to(torch.bfloat16) for k, t in m.items()}
     v = rangenet_state_dict(nu, model.cfg)
     names = {id(p): n for n, p in model.named_parameters()}
     state, idx = {}, 0

@@ -2,6 +2,7 @@
 cleanup (``postproc``)."""
 
 from lidar_transfer_tpu_torch.models.rangenet import (  # noqa: F401
+    BF16MomentAdam,
     RangeNet,
     RangeNetConfig,
     make_train_state,

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -201,12 +202,91 @@ def masked_cross_entropy(logits, labels, weights,
     return -(ll * w).sum() / torch.clamp(total, min=1.0)
 
 
+class BF16MomentAdam(torch.optim.Optimizer):
+    """Adam whose first moment is stored in bfloat16:
+    ``optax.adam(lr, mu_dtype=jnp.bfloat16)``, step for step.
+
+    As optax's ``scale_by_adam`` computes it: the new moment is
+    ``(1 - b1) * g + b1' * mu`` in float32 from the stored bf16 ``mu``,
+    where ``b1'`` is b1 rounded to bf16 (0.9 -> 0.8984375: JAX gives the
+    Python float the moment's dtype), while the bias correction uses b1
+    itself (``1 - b1 ** t`` in float32). This step's update uses the
+    float32 moment unrounded; only then is it stored as bf16 (round to
+    nearest even). The second moment stays float32. Optax's order within
+    a step: ``m_hat = m / (1 - b1**t)``, ``v_hat = v / (1 - b2**t)``,
+    ``p += -lr * (m_hat / (sqrt(v_hat) + eps))``. Plain PyTorch (one
+    multi-tensor operation a term where the dtypes allow)."""
+
+    def __init__(self, params, lr: float = 1e-3,
+                 betas: tuple[float, float] = (0.9, 0.999),
+                 eps: float = 1e-8):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps))
+
+    def load_state_dict(self, state_dict) -> None:
+        # Optimizer.load_state_dict casts every state tensor to its
+        # parameter's dtype; the bf16 values come back exactly
+        super().load_state_dict(state_dict)
+        for st in self.state.values():
+            if "exp_avg" in st:
+                st["exp_avg"] = st["exp_avg"].to(torch.bfloat16)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            states = []
+            for p in params:
+                st = self.state[p]
+                if not st:
+                    st["step"] = torch.tensor(0.0)
+                    st["exp_avg"] = torch.zeros_like(
+                        p, dtype=torch.bfloat16,
+                        memory_format=torch.preserve_format)
+                    st["exp_avg_sq"] = torch.zeros_like(
+                        p, memory_format=torch.preserve_format)
+                st["step"] += 1
+                states.append(st)
+            # one step count for the group, as optax's single count
+            t = np.float32(states[0]["step"].item())
+            grads = [p.grad for p in params]
+            mu = [st["exp_avg"].float() for st in states]
+            b1_bf16 = torch.tensor(b1, dtype=torch.bfloat16).item()
+            torch._foreach_mul_(mu, b1_bf16)
+            torch._foreach_add_(mu, grads, alpha=1 - b1)
+            nu = [st["exp_avg_sq"] for st in states]
+            torch._foreach_mul_(nu, b2)
+            torch._foreach_addcmul_(nu, grads, grads, value=1 - b2)
+            # the corrections in float32, as optax's 1 - b ** count
+            c1 = float(np.float32(1) - np.float32(b1) ** t)
+            c2 = float(np.float32(1) - np.float32(b2) ** t)
+            denom = torch._foreach_div(nu, c2)
+            torch._foreach_sqrt_(denom)
+            torch._foreach_add_(denom, group["eps"])
+            upd = torch._foreach_div(mu, c1)
+            torch._foreach_div_(upd, denom)
+            torch._foreach_add_(params, upd, alpha=-group["lr"])
+            for st, m in zip(states, mu):
+                st["exp_avg"].copy_(m)
+        return loss
+
+
 def make_train_state(model: RangeNet, generator: torch.Generator,
-                     learning_rate: float = 1e-3) -> torch.optim.Adam:
+                     learning_rate: float = 1e-3,
+                     mu_bf16: bool = False) -> torch.optim.Optimizer:
     """Initialise ``model``'s parameters from ``generator`` and return its
     Adam optimizer, with optax.adam's defaults (b1 0.9, b2 0.999, eps
-    1e-8)."""
+    1e-8); ``mu_bf16``: :class:`BF16MomentAdam` (optax's
+    ``mu_dtype=bfloat16``)."""
     model.init_parameters(generator)
+    if mu_bf16:
+        return BF16MomentAdam(model.parameters(), lr=learning_rate)
     return torch.optim.Adam(model.parameters(), lr=learning_rate,
                             betas=(0.9, 0.999), eps=1e-8)
 

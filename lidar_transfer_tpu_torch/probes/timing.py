@@ -17,6 +17,14 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def device_line(device) -> str:
+    """What a result records of where it ran: :func:`gpu_line` for a CUDA
+    device, ``"cpu"`` for the CPU."""
+    import torch
+
+    return gpu_line() if torch.device(device).type == "cuda" else "cpu"
+
+
 def max_sm_clock_mhz() -> float:
     """The first card's highest SM clock (MHz), as ``nvidia-smi
     --query-gpu=clocks.max.sm`` reports it."""

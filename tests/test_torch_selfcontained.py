@@ -90,7 +90,10 @@ def test_no_import_of_the_jax_package():
     "lidar_transfer_tpu_torch.visualize", "lidar_transfer_tpu_torch.webviewer",
     "lidar_transfer_tpu_torch.interactive",
     "lidar_transfer_tpu_torch.datasets.convert",
-    "lidar_transfer_tpu_torch.experiments.multiscene"])
+    "lidar_transfer_tpu_torch.experiments.multiscene",
+    "lidar_transfer_tpu_torch.experiments.grids",
+    "lidar_transfer_tpu_torch.experiments.upsample",
+    "lidar_transfer_tpu_torch.probes.train_levers"])
 def test_fresh_interpreter_loads_neither(module):
     """Importing the port's entry modules in a fresh interpreter leaves
     neither package, nor flax or optax, in ``sys.modules``."""
