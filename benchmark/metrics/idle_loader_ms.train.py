@@ -1,0 +1,9 @@
+"""Device-idle ms a train step in the gaps that began while the loader
+thread read, padded, projected or labelled (the port's ``loader.*`` spans
+other than its copies, against the traced stretch's device operations)."""
+
+from harness.port_spans import idle_ms_in
+
+
+def read(run):
+    return idle_ms_in(run)

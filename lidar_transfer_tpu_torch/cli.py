@@ -28,9 +28,13 @@ path too. ``--png`` writes label and range renders of each virtual scan
 standalone WebGL viewer (``webviewer.export_html``) of the first
 ``--html-frames`` frames, source beside virtual scan with the
 ``interactive.frame_payload`` title metrics; it turns ``--stream`` off.
-``--profile DIR`` records the frame loop with ``torch.profiler`` (CPU and,
-on the card, CUDA activities) and writes a Chrome trace,
-``DIR/trace.json``, also when the loop raises. Per frame it runs
+``--profile DIR`` records the frame loop and its loader with
+``torch.profiler`` (CPU and, on the card, CUDA activities) and writes a
+Chrome trace, ``DIR/trace.json``, also when the loop raises; the port's
+own spans (``utils/runtime``: the loader thread's ``prefetch.load``,
+``loader.read``, ``loader.pad``, ``stage.*`` of the frame loop) are added
+to it, one row a thread, placed by two ``lt.clock`` anchors at the
+profile's start and end. Per frame it runs
 ``TransferEngine.transfer_fast``, which for cp is ``transfer``, cp's
 exact-identity path. It runs on the card unless
 ``--device cpu`` is given; without a CUDA device it refuses to start.
@@ -62,7 +66,9 @@ from lidar_transfer_tpu_torch.pipeline.multiscan import (load_window,
 from lidar_transfer_tpu_torch.pipeline.writer import write_virtual_scan
 from lidar_transfer_tpu_torch.utils.images import save_virtual_scan_pngs
 from lidar_transfer_tpu_torch.utils.prefetch import Prefetcher
-from lidar_transfer_tpu_torch.utils.runtime import StageTimer
+from lidar_transfer_tpu_torch.utils.runtime import (StageTimer,
+                                                    add_to_chrome_trace,
+                                                    profiler_anchor)
 from lidar_transfer_tpu_torch.webviewer import export_html
 
 
@@ -116,7 +122,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Per-cloud point cap embedded in --html.")
     p.add_argument("--profile", type=str, default=None, metavar="DIR",
                    help="Record the frame loop with torch.profiler and "
-                        "write a Chrome trace into DIR.")
+                        "write a Chrome trace into DIR, the port's spans "
+                        "added.")
     p.add_argument("--device", type=str, default="cuda",
                    help="Torch device (default cuda; cpu only when asked "
                         "for).")
@@ -208,6 +215,14 @@ def main(argv=None) -> int:
         if args.one_scan:
             break
         j += increment
+    prof = None
+    if args.profile:   # from before the loader's first window
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=activities)
+        prof.start()
+        profiler_anchor()
     windows_ahead = Prefetcher(
         lambda i: load_window(seq, cfg, i, capacity, device), plan, depth=2)
 
@@ -258,13 +273,6 @@ def main(argv=None) -> int:
                np.uint8))
     all_metrics = []
     html_frames = []
-    prof = None
-    if args.profile:
-        activities = [torch.profiler.ProfilerActivity.CPU]
-        if device.type == "cuda":
-            activities.append(torch.profiler.ProfilerActivity.CUDA)
-        prof = torch.profiler.profile(activities=activities)
-        prof.start()
     # an exception mid-run still stops the profiler and writes the trace
     try:
         for n_done, (i, window, vs, timer, t0) in enumerate(
@@ -313,10 +321,13 @@ def main(argv=None) -> int:
     finally:
         windows_ahead.close()
         if prof is not None:
+            profiler_anchor()
             prof.stop()
             os.makedirs(args.profile, exist_ok=True)
-            prof.export_chrome_trace(os.path.join(args.profile, "trace.json"))
-            print(f"profiler trace in {args.profile}")
+            trace = os.path.join(args.profile, "trace.json")
+            prof.export_chrome_trace(trace)
+            print(f"profiler trace in {args.profile}, with "
+                  f"{add_to_chrome_trace(trace)} port spans")
 
     if args.html and html_frames:
         out = export_html(

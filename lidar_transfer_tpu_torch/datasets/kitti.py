@@ -10,7 +10,9 @@ Rebuilds the reference's L1 foundation (SURVEY.md §1):
                              struct.pack loops; we use numpy tofile)
 
 All functions are host-side numpy; device arrays are produced downstream in
-ops/ with fixed-capacity padding.
+ops/ with fixed-capacity padding. The readers are the spans ``loader.read``
+(with the ``bytes`` read) and the padding ``loader.pad``
+(``utils/runtime``).
 """
 
 from __future__ import annotations
@@ -21,12 +23,16 @@ from typing import Sequence
 
 import numpy as np
 
+from lidar_transfer_tpu_torch.utils.runtime import span
+
 
 def read_scan_file(filename: str) -> tuple[np.ndarray, np.ndarray]:
     """Read a KITTI .bin scan -> (points (N,3) f32, remissions (N,) f32)."""
     if not filename.endswith(".bin"):
         raise RuntimeError(f"not a KITTI scan file: {filename}")
-    scan = np.fromfile(filename, dtype=np.float32).reshape(-1, 4)
+    with span("loader.read") as sp:
+        scan = np.fromfile(filename, dtype=np.float32).reshape(-1, 4)
+        sp.set(bytes=scan.nbytes)
     return np.ascontiguousarray(scan[:, 0:3]), np.ascontiguousarray(scan[:, 3])
 
 
@@ -39,7 +45,9 @@ def read_label_file(filename: str, num_points: int | None = None
     """
     if not filename.endswith(".label"):
         raise RuntimeError(f"not a KITTI label file: {filename}")
-    label = np.fromfile(filename, dtype=np.uint32)
+    with span("loader.read") as sp:
+        label = np.fromfile(filename, dtype=np.uint32)
+        sp.set(bytes=label.nbytes)
     if num_points is not None and label.shape[0] != num_points:
         raise ValueError(
             f"scan and label point counts differ: {num_points} vs "
@@ -197,14 +205,15 @@ def pad_points(points: np.ndarray, remissions: np.ndarray,
     n = points.shape[0]
     if n > capacity:
         raise ValueError(f"scan has {n} points > capacity {capacity}")
-    p = np.zeros((capacity, 3), dtype=np.float32)
-    r = np.zeros((capacity,), dtype=np.float32)
-    l = np.zeros((capacity,), dtype=np.int32)
-    m = np.zeros((capacity,), dtype=bool)
-    p[:n] = points
-    r[:n] = remissions
-    l[:n] = labels
-    m[:n] = True
+    with span("loader.pad"):
+        p = np.zeros((capacity, 3), dtype=np.float32)
+        r = np.zeros((capacity,), dtype=np.float32)
+        l = np.zeros((capacity,), dtype=np.int32)
+        m = np.zeros((capacity,), dtype=bool)
+        p[:n] = points
+        r[:n] = remissions
+        l[:n] = labels
+        m[:n] = True
     return p, r, l, m
 
 

@@ -22,7 +22,9 @@ static counterparts (252 -> 10 and so on, as bonnetal's learning_map), and
 ignore classes get weight 0 in the loss and leave the IoU mean.
 
 Every entry point runs on the card (``device="cuda"``) unless the caller
-asks for the CPU; without a CUDA device it raises.
+asks for the CPU; without a CUDA device it raises. The loader's spans
+(``utils/runtime``): ``loader.upload`` a copy to the device,
+``loader.project`` and ``loader.labels``.
 """
 
 from __future__ import annotations
@@ -33,6 +35,8 @@ import sys
 
 import numpy as np
 import torch
+
+from lidar_transfer_tpu_torch.utils.runtime import span, upload
 
 # moving -> static folds (SemanticKITTI convention)
 MOVING_TO_STATIC = {252: 10, 253: 31, 254: 30, 255: 32, 256: 16, 257: 13,
@@ -95,24 +99,28 @@ def _project(points, remissions, labels, spec, capacity, device):
     from lidar_transfer_tpu_torch.models.rangenet import range_image_features
     from lidar_transfer_tpu_torch.ops import projection as P
 
-    p, r, l, m = (torch.from_numpy(a).to(device) for a in
+    p, r, l, m = (upload(a, device) for a in
                   kitti.pad_points(points, remissions, labels, capacity))
-    ri = P.range_project(p, r, l, m, H=spec.H, W=spec.W,
-                         fov_up_deg=spec.fov_up, fov_down_deg=spec.fov_down)
-    xyz = torch.where(ri.mask[..., None],
-                      p[torch.clamp(ri.index, min=0).long()], 0.0)
-    return ri, range_image_features(ri.range, xyz, ri.remission, ri.mask)
+    with span("loader.project"):
+        ri = P.range_project(p, r, l, m, H=spec.H, W=spec.W,
+                             fov_up_deg=spec.fov_up,
+                             fov_down_deg=spec.fov_down)
+        xyz = torch.where(ri.mask[..., None],
+                          p[torch.clamp(ri.index, min=0).long()], 0.0)
+        return ri, range_image_features(ri.range, xyz, ri.remission, ri.mask)
 
 
 def _frame_tensors(seq, idx, spec, capacity, mapper, device):
     """One scan -> (features (H,W,5), labels (H,W) index, weights (H,W)),
-    all three on ``device``: the one upload is the raw points."""
+    all three on ``device``: the uploads are the padded points and the
+    label table."""
     ri, feats = _project(*seq.read(idx), spec, capacity, device)
-    lut = torch.from_numpy(mapper.raw_to_index).to(device)  # <= 260 entries
-    lbl_idx = lut[torch.clamp(ri.label, 0, lut.shape[0] - 1).long()]
-    weights = ri.mask.to(torch.float32)
-    for ig in mapper.ignore_indices:
-        weights = torch.where(lbl_idx == ig, 0.0, weights)
+    lut = upload(mapper.raw_to_index, device)  # <= 260 entries
+    with span("loader.labels"):
+        lbl_idx = lut[torch.clamp(ri.label, 0, lut.shape[0] - 1).long()]
+        weights = ri.mask.to(torch.float32)
+        for ig in mapper.ignore_indices:
+            weights = torch.where(lbl_idx == ig, 0.0, weights)
     return feats, lbl_idx, weights
 
 

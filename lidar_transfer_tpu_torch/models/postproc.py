@@ -15,12 +15,16 @@ histogram. Semantics, as the JAX function's:
   - a tie in the vote goes to the lowest class index;
   - points whose every neighbour fails the range cutoff keep their own
     pixel's prediction.
+A call is the span ``postproc.knn``, its copy of the spatial weights to the
+device the child ``postproc.upload`` (``utils/runtime``).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from lidar_transfer_tpu_torch.utils.runtime import span, upload
 
 
 def _window_stack(img: torch.Tensor, ksize: int, fill) -> torch.Tensor:
@@ -67,37 +71,39 @@ def knn_cleanup(proj_range: torch.Tensor, pred_img: torch.Tensor,
     Returns (N,) int32: the voted class where >= 1 neighbour passes the
     cutoff, else the point's own pixel prediction.
     """
-    H, W = proj_range.shape
-    S = ksize * ksize
-    k = min(k, S)
-    dev = proj_range.device
+    with span("postproc.knn"):
+        H, W = proj_range.shape
+        S = ksize * ksize
+        k = min(k, S)
+        dev = proj_range.device
 
-    pred_img = pred_img.to(torch.int64)
-    flat = (torch.clamp(point_v.to(torch.int64), 0, H - 1) * W
-            + torch.clamp(point_u.to(torch.int64), 0, W - 1))
-    rng_n = _window_stack(proj_range.to(torch.float32), ksize,
-                          float("inf")).reshape(H * W, S)[flat]
-    pred_n = _window_stack(pred_img, ksize, 0).reshape(H * W, S)[flat]
-    ok_n = _window_stack(mask_img.to(torch.bool), ksize,
-                         False).reshape(H * W, S)[flat]
+        pred_img = pred_img.to(torch.int64)
+        flat = (torch.clamp(point_v.to(torch.int64), 0, H - 1) * W
+                + torch.clamp(point_u.to(torch.int64), 0, W - 1))
+        rng_n = _window_stack(proj_range.to(torch.float32), ksize,
+                              float("inf")).reshape(H * W, S)[flat]
+        pred_n = _window_stack(pred_img, ksize, 0).reshape(H * W, S)[flat]
+        ok_n = _window_stack(mask_img.to(torch.bool), ksize,
+                             False).reshape(H * W, S)[flat]
 
-    dist = torch.abs(rng_n - point_range.to(torch.float32)[:, None])
-    wts = torch.from_numpy(_inv_gauss_weights(ksize, sigma)).to(dev)
-    scaled = torch.where(ok_n, dist * wts, float("inf"))
-    kth = torch.kthvalue(scaled, k, dim=-1).values
-    # a label outside [0, C) casts no vote (as jax.nn.one_hot's zero row)
-    in_range = (pred_n >= 0) & (pred_n < num_classes)
-    votes_on = (scaled <= kth[:, None]) & (dist <= cutoff) & ok_n & in_range
+        dist = torch.abs(rng_n - point_range.to(torch.float32)[:, None])
+        wts = upload(_inv_gauss_weights(ksize, sigma), dev, "postproc.upload")
+        scaled = torch.where(ok_n, dist * wts, float("inf"))
+        kth = torch.kthvalue(scaled, k, dim=-1).values
+        # a label outside [0, C) casts no vote (as jax.nn.one_hot's zero row)
+        in_range = (pred_n >= 0) & (pred_n < num_classes)
+        votes_on = ((scaled <= kth[:, None]) & (dist <= cutoff) & ok_n
+                    & in_range)
 
-    hist = torch.zeros((flat.shape[0], num_classes), dtype=torch.float32,
-                       device=dev)
-    hist.scatter_add_(1, torch.where(in_range, pred_n, 0),
-                      votes_on.to(torch.float32))
-    # argmax returns the first maximum: the lowest class index on a tie
-    voted = torch.argmax(hist, dim=-1)
-    center = pred_img.reshape(-1)[flat]
-    out = torch.where(hist.sum(dim=-1) > 0, voted, center)
-    return torch.where(point_valid, out, center).to(torch.int32)
+        hist = torch.zeros((flat.shape[0], num_classes),
+                           dtype=torch.float32, device=dev)
+        hist.scatter_add_(1, torch.where(in_range, pred_n, 0),
+                          votes_on.to(torch.float32))
+        # argmax returns the first maximum: the lowest class index on a tie
+        voted = torch.argmax(hist, dim=-1)
+        center = pred_img.reshape(-1)[flat]
+        out = torch.where(hist.sum(dim=-1) > 0, voted, center)
+        return torch.where(point_valid, out, center).to(torch.int32)
 
 
 def knn_cleanup_oracle(proj_range, pred_img, mask_img, point_range,

@@ -16,6 +16,10 @@ a flax parameter tree across and both give the same logits.
 Inputs and logits are (B, H, W, C) float32, as in the JAX module; inside,
 the network runs NCHW. Input features per pixel: (range, x, y, z,
 remission), the classic RangeNet 5-channel encoding.
+
+Spans (``utils/runtime``): ``train_step`` is ``model.step`` with the
+children ``model.forward`` (the loss included), ``model.backward`` and
+``model.optimizer``; ``infer`` is ``model.infer``.
 """
 
 from __future__ import annotations
@@ -27,6 +31,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
+
+from lidar_transfer_tpu_torch.utils.runtime import span
 
 #: flax's GroupNorm epsilon (``nn.GroupNorm`` defaults to 1e-5)
 GN_EPS = 1e-6
@@ -304,27 +310,34 @@ def train_step(model: RangeNet, optimizer: torch.optim.Optimizer,
     ranks' own ratios would weigh a pixel by its rank's valid-pixel count).
     The loss returned is the global one on every rank.
     """
-    optimizer.zero_grad(set_to_none=True)
-    w = batch["weights"]
-    if group is None:
-        loss = masked_cross_entropy(model(batch["features"]),
-                                    batch["labels"], w)
-        loss.backward()
-    else:
-        import torch.distributed as dist
+    with span("model.step"):
+        optimizer.zero_grad(set_to_none=True)
+        w = batch["weights"]
+        if group is None:
+            with span("model.forward"):
+                loss = masked_cross_entropy(model(batch["features"]),
+                                            batch["labels"], w)
+            with span("model.backward"):
+                loss.backward()
+        else:
+            import torch.distributed as dist
 
-        total = w.to(torch.float32).sum()
-        dist.all_reduce(total, group=group)
-        loss = masked_cross_entropy(model(batch["features"]),
-                                    batch["labels"], w, total=total)
-        (loss * dist.get_world_size(group)).backward()
-        loss = loss.detach()
-        dist.all_reduce(loss, group=group)
-    optimizer.step()
-    return loss.detach()
+            with span("model.forward"):
+                total = w.to(torch.float32).sum()
+                dist.all_reduce(total, group=group)
+                loss = masked_cross_entropy(model(batch["features"]),
+                                            batch["labels"], w, total=total)
+            with span("model.backward"):
+                (loss * dist.get_world_size(group)).backward()
+            loss = loss.detach()
+            dist.all_reduce(loss, group=group)
+        with span("model.optimizer"):
+            optimizer.step()
+        return loss.detach()
 
 
 @torch.no_grad()
 def infer(model: RangeNet, features: torch.Tensor) -> torch.Tensor:
     """-> per-pixel argmax class indices, int32."""
-    return torch.argmax(model(features), dim=-1).to(torch.int32)
+    with span("model.infer"):
+        return torch.argmax(model(features), dim=-1).to(torch.int32)

@@ -84,6 +84,7 @@ from lidar_transfer_tpu_torch.ops.tsdf_cuda import (integrate_chain_cuda,
 from lidar_transfer_tpu_torch.pipeline.multiscan import (ScanWindow,
                                                          merge_window)
 from lidar_transfer_tpu_torch.utils.plyio import write_ply
+from lidar_transfer_tpu_torch.utils.runtime import span
 
 
 class CategoryMesh(NamedTuple):
@@ -578,19 +579,21 @@ class TransferEngine:
     # ----------------------------------------------------------- catmesh
     @contextlib.contextmanager
     def _stage(self, name: str):
-        """Add the wall time of the enclosed stage to ``self.spans[name]``,
-        the device synchronised at both ends; without ``spans`` it does
-        nothing."""
+        """The enclosed stage is the recorder's span ``oracle.<name>``
+        (``utils/runtime``); with ``spans``, its wall time is also added to
+        ``self.spans[name]``, the device synchronised at both ends."""
         spans = self.spans
         if spans is None:
-            yield
+            with span(f"oracle.{name}"):
+                yield
             return
         sync = (torch.cuda.synchronize if self.device.type == "cuda"
                 else lambda: None)
         sync()
         t0 = time.perf_counter()
         try:
-            yield
+            with span(f"oracle.{name}"):
+                yield
         finally:
             sync()
             spans[name] = spans.get(name, 0.0) + time.perf_counter() - t0

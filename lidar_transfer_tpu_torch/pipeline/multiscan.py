@@ -18,6 +18,7 @@ from lidar_transfer_tpu_torch.config import TransferConfig
 from lidar_transfer_tpu_torch.datasets import kitti
 from lidar_transfer_tpu_torch.ops.projection import mask_classes
 from lidar_transfer_tpu_torch.ops.transforms import transform_points
+from lidar_transfer_tpu_torch.utils.runtime import upload
 
 
 # window_indices / min_start_index / max_end_index are plain Python in
@@ -88,8 +89,7 @@ def load_window(seq: kitti.KittiSequence, cfg: TransferConfig, idx: int,
         p, r, l, m = kitti.pad_points(points, rem, labels, capacity)
         rel = (pose_primary_inv @ extra @ seq.poses[i]).astype(np.float32)
         cols.append((p, r, l, m, rel))
-    p, r, l, m, rel = (torch.from_numpy(np.stack(c)).to(device)
-                       for c in zip(*cols))
+    p, r, l, m, rel = (upload(np.stack(c), device) for c in zip(*cols))
     window = ScanWindow(points=p, remissions=r, labels=l, valid=m,
                         rel_pose=rel)
     return apply_class_masks(window, cfg.ignore_classes, cfg.moving_classes)

@@ -11,7 +11,9 @@ them. The port's own copy of ``lidar_transfer_tpu/utils/prefetch.py``.
 
 Index order is preserved exactly; worker exceptions re-raise at the
 consuming ``__next__`` (annotated with the failing index) so IO errors
-surface where the reference's would.
+surface where the reference's would. Each ``load_fn`` call is the span
+``prefetch.load`` of the worker thread, named ``lt-prefetch``
+(``utils/runtime``).
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ from __future__ import annotations
 import queue
 import threading
 import time
+
+from lidar_transfer_tpu_torch.utils.runtime import span
 
 
 class Prefetcher:
@@ -41,7 +45,8 @@ class Prefetcher:
                     if self._closed.is_set():
                         return
                     try:
-                        item = (i, load_fn(i), None)
+                        with span("prefetch.load"):
+                            item = (i, load_fn(i), None)
                     except BaseException as e:  # re-raised at __next__
                         self._q.put((i, None, e))
                         return

@@ -402,6 +402,26 @@ def test_cli_html_and_profile(cli_runs):
         assert json.load(f)["traceEvents"]
 
 
+def test_cli_profile_holds_the_port_spans(cli_runs):
+    """``--profile``'s trace holds two ``lt.clock`` anchors and, between
+    them, the loader thread's ``prefetch.load`` and ``loader.read`` spans
+    on a row of their own."""
+    with open(cli_runs / "prof" / "trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    anchors = sorted(e["ts"] for e in events
+                     if e.get("name") == "lt.clock" and e.get("ph") == "X")
+    assert len(anchors) == 2
+    rows = {e["tid"]: e["args"]["name"] for e in events
+            if e.get("ph") == "M" and e.get("name") == "thread_name"}
+    for name in ("prefetch.load", "loader.read"):
+        spans = [e for e in events if e.get("cat") == "port_span"
+                 and e["name"] == name]
+        assert spans, name
+        for e in spans:
+            assert rows[e["tid"]] == "port spans: lt-prefetch"
+            assert anchors[0] <= e["ts"] <= anchors[1]
+
+
 def test_cli_flags_change_no_result(inset_dataset, tmp_path):
     """The port's written scans with and without the new flags are equal
     byte for byte; ``--html`` turns ``--stream`` off."""
