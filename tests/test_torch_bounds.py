@@ -7,6 +7,7 @@ import pytest
 
 from lidar_transfer_tpu_torch.probes import bounds
 from lidar_transfer_tpu_torch.utils.runtime import cpu_warmup
+from torch_suite import shared_cores, time_limit  # noqa: F401
 
 
 @pytest.fixture(scope="module", autouse=True)

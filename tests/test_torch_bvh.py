@@ -37,6 +37,7 @@ from lidar_transfer_tpu_torch.ops import triangles_cuda as TC
 from lidar_transfer_tpu_torch.pipeline import deform as TD
 from lidar_transfer_tpu_torch.pipeline import multiscan as TM
 from lidar_transfer_tpu_torch.utils.runtime import cpu_warmup
+from torch_suite import narrow_spec, shared_cores, time_limit  # noqa: F401
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -440,11 +441,12 @@ def test_traversal_matches_jax(origin, seed):
     assert 0.2 < float(t.hit.float().mean()) < 0.95
 
 
-def test_oracle_frame_mesh(synthetic_dataset, small_spec):
+def test_oracle_frame_mesh(synthetic_dataset, small_spec, narrow_spec):
     """The catmesh oracle engine's mesh of frame 2 of the shared synthetic
     dataset (``tests/test_torch_catmesh_oracle.py``'s size: 16 x 256,
-    voxel 0.25 m, +-16/+-16/+-4 m) and its target rays: the traversal
-    equals the dense sweep on every ray, bit for bit."""
+    voxel 0.25 m, +-16/+-16/+-4 m) and its target rays, those of a 16 x 64
+    target of the same fov (``narrow_spec``; the mesh is the same): the
+    traversal equals the dense sweep on every ray, bit for bit."""
     cfg = TransferConfig(adaption="catmesh", number_of_scans=1,
                          preserve_float=True, voxel_size=0.25,
                          voxel_bounds=((-16.0, 16.0), (-16.0, 16.0),
@@ -452,9 +454,9 @@ def test_oracle_frame_mesh(synthetic_dataset, small_spec):
     seq = kitti.KittiSequence.open(synthetic_dataset)
     cap = kitti.scan_capacity(max(os.path.getsize(f) // 16
                                   for f in seq.scan_files))
-    spec = SensorSpec(**dataclasses.asdict(small_spec))
-    eng = TD.TransferEngine(spec, spec, cfg, device="cpu",
-                            catmesh_engine="oracle")
+    eng = TD.TransferEngine(SensorSpec(**dataclasses.asdict(small_spec)),
+                            SensorSpec(**dataclasses.asdict(narrow_spec)),
+                            cfg, device="cpu", catmesh_engine="oracle")
     eng.transfer_fast(TM.load_window(seq, cfg, 2, cap, "cpu"))
     mesh = eng._last_mesh
     tri = torch.from_numpy(mesh.verts)[torch.from_numpy(mesh.faces).to(

@@ -41,6 +41,7 @@ from lidar_transfer_tpu_torch import native as TN
 from lidar_transfer_tpu_torch.pipeline import deform as TD
 from lidar_transfer_tpu_torch.pipeline import multiscan as TM
 from lidar_transfer_tpu_torch.utils.runtime import cpu_warmup
+from torch_suite import narrow_spec, shared_cores, time_limit  # noqa: F401
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -61,14 +62,17 @@ AGREE, RANGE_SHARE, RANGE_TOL = 0.999, 0.99, 1e-4
 SEAM = 0.007
 
 
-def _engines(small_spec, extract="host", fixed=False, **kw):
-    je = JD.TransferEngine(small_spec, small_spec, TransferConfig(**BASE),
+def _engines(small_spec, extract="host", fixed=False, target=None, **kw):
+    """Both packages' oracle engines from ``small_spec`` to ``target``
+    (``small_spec`` itself by default)."""
+    target = target or small_spec
+    je = JD.TransferEngine(small_spec, target, TransferConfig(**BASE),
                            CAP, fixed_bounds=fixed, catmesh_engine="oracle",
                            **kw)
-    spec = TC.SensorSpec(**dataclasses.asdict(small_spec))
-    te = TD.TransferEngine(spec, spec, TC.TransferConfig(**BASE),
-                           fixed_bounds=fixed, device="cpu",
-                           catmesh_engine="oracle", **kw)
+    te = TD.TransferEngine(TC.SensorSpec(**dataclasses.asdict(small_spec)),
+                           TC.SensorSpec(**dataclasses.asdict(target)),
+                           TC.TransferConfig(**BASE), fixed_bounds=fixed,
+                           device="cpu", catmesh_engine="oracle", **kw)
     if extract == "cells":
         je._CELLS_EXTRACT_MIN_VOX = te._CELLS_EXTRACT_MIN_VOX = 0
     return je, te
@@ -168,14 +172,16 @@ def test_oracle_frame_against_its_native_copy(synthetic_dataset,
 
 @pytest.mark.parametrize("entry", ["transfer_fast", "transfer_stream"])
 def test_fast_paths_route_the_oracle_through_transfer(synthetic_dataset,
-                                                      small_spec, entry):
+                                                      small_spec, narrow_spec,
+                                                      entry):
     """``transfer_fast`` and ``transfer_stream`` send catmesh to the splat
     body only on its splat engine: the oracle's frames equal
     ``transfer``'s bit for bit, their volume is integrated in the frame,
     and the CPU launches no kernel. ``spans`` times every
-    stage (``TransferEngine.spans``)."""
-    _, te = _engines(small_spec)
-    _, ref = _engines(small_spec)
+    stage (``TransferEngine.spans``). The target is ``narrow_spec``: the
+    routes are compared on a quarter of the rays, against the same mesh."""
+    _, te = _engines(small_spec, target=narrow_spec)
+    _, ref = _engines(small_spec, target=narrow_spec)
     assert not te._mm_family_fast
     windows = [_window(synthetic_dataset, i)[1] for i in (1, 2)]
     _build.reset_launch_counts()

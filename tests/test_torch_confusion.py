@@ -19,6 +19,7 @@ from lidar_transfer_tpu_torch.metrics import confusion as TF
 from lidar_transfer_tpu_torch.metrics import ioueval as TI
 from lidar_transfer_tpu_torch.probes.cases import confusion_labels
 from lidar_transfer_tpu_torch.utils.runtime import cpu_warmup
+from torch_suite import shared_cores, time_limit  # noqa: F401
 
 
 @pytest.fixture(scope="module", autouse=True)

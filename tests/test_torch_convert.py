@@ -16,6 +16,7 @@ import pytest
 from lidar_transfer_tpu.datasets import convert as JCV
 from lidar_transfer_tpu_torch.datasets import convert as TCV
 from lidar_transfer_tpu_torch.utils.runtime import cpu_warmup
+from torch_suite import shared_cores, time_limit  # noqa: F401
 
 
 @pytest.fixture(scope="module", autouse=True)

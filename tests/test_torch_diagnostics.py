@@ -26,6 +26,7 @@ from lidar_transfer_tpu.pipeline import multiscan as JM
 from lidar_transfer_tpu_torch import _build
 from lidar_transfer_tpu_torch.metrics import diagnostics as TDG
 from lidar_transfer_tpu_torch.utils.runtime import cpu_warmup
+from torch_suite import shared_cores, time_limit  # noqa: F401
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -46,6 +46,7 @@ from lidar_transfer_tpu_torch.experiments.grid_search import (
     evaluate_transfer, grid_search)
 from lidar_transfer_tpu_torch.models import RangeNet, RangeNetConfig
 from lidar_transfer_tpu_torch.utils.runtime import cpu_warmup
+from torch_suite import shared_cores, time_limit  # noqa: F401
 
 
 @pytest.fixture(scope="module", autouse=True)

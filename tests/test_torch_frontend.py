@@ -49,6 +49,7 @@ from lidar_transfer_tpu_torch.experiments import multiscene
 from lidar_transfer_tpu_torch.ops import projection as TP
 from lidar_transfer_tpu_torch.utils import images
 from lidar_transfer_tpu_torch.utils.runtime import cpu_warmup
+from torch_suite import shared_cores, time_limit  # noqa: F401
 
 
 @pytest.fixture(scope="module", autouse=True)

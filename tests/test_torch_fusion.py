@@ -24,6 +24,7 @@ from lidar_transfer_tpu_torch.ops.tsdf_cuda import (integrate_chain_cuda,
                                                     integrate_cuda,
                                                     precompute_geometry_cuda)
 from lidar_transfer_tpu_torch.utils.runtime import cpu_warmup
+from torch_suite import shared_cores, time_limit  # noqa: F401
 
 S, H, W = 3, 16, 256
 DIMS = (16, 128, 32)

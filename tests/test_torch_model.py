@@ -21,6 +21,7 @@ from lidar_transfer_tpu.models import rangenet as JR
 from lidar_transfer_tpu_torch import interop
 from lidar_transfer_tpu_torch.models import rangenet as TR
 from lidar_transfer_tpu_torch.utils.runtime import cpu_warmup
+from torch_suite import shared_cores, time_limit  # noqa: F401
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -26,6 +26,7 @@ from lidar_transfer_tpu_torch.datasets import kitti
 from lidar_transfer_tpu_torch.pipeline.deform import TransferEngine
 from lidar_transfer_tpu_torch.pipeline.multiscan import load_window
 from lidar_transfer_tpu_torch.utils.runtime import cpu_warmup
+from torch_suite import shared_cores, time_limit  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -56,7 +57,7 @@ def _dryrun(tmp_path, n_proc, *extra):
         for p in procs:
             if p.poll() is None:
                 p.kill()
-                p.wait()
+                p.wait(timeout=30)
     for pid, (p, log) in enumerate(zip(procs, logs)):
         assert p.returncode == 0, f"process {pid} failed:\n{log[-4000:]}"
         assert f"process {pid}: OK" in log

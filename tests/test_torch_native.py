@@ -18,6 +18,7 @@ import pytest
 from lidar_transfer_tpu import native as JN
 from lidar_transfer_tpu_torch import _build
 from lidar_transfer_tpu_torch import native as TN
+from torch_suite import shared_cores, time_limit  # noqa: F401
 
 
 def _soup(seed, n_tris=400, n_rays=1000):

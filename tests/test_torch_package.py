@@ -30,6 +30,7 @@ from lidar_transfer_tpu_torch.ops.tsdf_cuda import (integrate_chain_cuda,
 from lidar_transfer_tpu_torch.pipeline import deform as TD
 from lidar_transfer_tpu_torch.pipeline.multiscan import ScanWindow
 from lidar_transfer_tpu_torch.utils.runtime import cpu_warmup
+from torch_suite import narrow_spec, shared_cores, time_limit  # noqa: F401
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -93,11 +94,12 @@ def _small_window(spec, nscans=1):
                       rel_pose=torch.eye(4)[None].repeat(nscans, 1, 1))
 
 
-def test_cpu_calls_launch_no_kernel(small_spec):
+def test_cpu_calls_launch_no_kernel(small_spec, narrow_spec):
     """CPU tensors take the plain versions: every launch count stays 0,
     on the mergemesh path, on the mesh path with its chain and geometry
     table, on the raymarch path, and on catmesh's oracle engine with its
-    mesh raycast."""
+    mesh raycast (to ``narrow_spec``, whose fewer rays cast against the
+    same mesh)."""
     _build.reset_launch_counts()
     eng = TD.TransferEngine(small_spec, small_spec, CFG, fixed_bounds=True,
                             device="cpu")
@@ -120,7 +122,7 @@ def test_cpu_calls_launch_no_kernel(small_spec):
                               synthesis="raymarch", compact_volume=True)
     assert bool(march.transfer_fast(_small_window(small_spec)).mask.any())
     oracle = TD.TransferEngine(
-        small_spec, small_spec,
+        small_spec, narrow_spec,
         TransferConfig(adaption="catmesh", voxel_size=CFG.voxel_size,
                        voxel_bounds=CFG.voxel_bounds),
         fixed_bounds=True, device="cpu", catmesh_engine="oracle")

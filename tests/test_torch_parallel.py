@@ -64,6 +64,7 @@ from lidar_transfer_tpu_torch.ops import splat as TSp
 from lidar_transfer_tpu_torch.ops import tsdf as TT
 from lidar_transfer_tpu_torch.pipeline import deform as TD
 from lidar_transfer_tpu_torch.utils.runtime import cpu_warmup
+from torch_suite import shared_cores, time_limit  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(REPO, "tests", "torch_parallel_worker.py")
@@ -223,7 +224,7 @@ def _spawn(world, inputs, tmp_path_factory):
         for p in procs:
             if p.poll() is None:
                 p.kill()
-                p.wait()
+                p.wait(timeout=30)
     for r, (p, log) in enumerate(zip(procs, logs)):
         assert p.returncode == 0, f"rank {r} failed:\n{log[-6000:]}"
     return [torch.load(str(d / f"rank{r}.pt"), weights_only=False)

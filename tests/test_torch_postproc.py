@@ -11,6 +11,7 @@ import torch
 from lidar_transfer_tpu.models import postproc as JP
 from lidar_transfer_tpu_torch.models import postproc as TP
 from lidar_transfer_tpu_torch.utils.runtime import cpu_warmup
+from torch_suite import shared_cores, time_limit  # noqa: F401
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -31,6 +31,7 @@ from lidar_transfer_tpu_torch import _build
 from lidar_transfer_tpu_torch.probes import __main__ as probes_main
 from lidar_transfer_tpu_torch.probes import ablate, parts, runs, write
 from lidar_transfer_tpu_torch.utils.runtime import cpu_warmup
+from torch_suite import shared_cores, time_limit  # noqa: F401
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -18,6 +18,7 @@ from lidar_transfer_tpu.ops import transforms as JT
 from lidar_transfer_tpu_torch.ops import projection as TP
 from lidar_transfer_tpu_torch.ops import transforms as TT
 from lidar_transfer_tpu_torch.utils.runtime import cpu_warmup
+from torch_suite import shared_cores, time_limit  # noqa: F401
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -31,6 +31,7 @@ from lidar_transfer_tpu_torch.ops import marching as TMA
 from lidar_transfer_tpu_torch.utils import plyio as TPLY
 from lidar_transfer_tpu_torch.utils import prefetch as TPF
 from lidar_transfer_tpu_torch.utils import runtime as TRT
+from torch_suite import shared_cores, time_limit  # noqa: F401
 
 
 @pytest.fixture(scope="module", autouse=True)

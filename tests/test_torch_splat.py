@@ -18,6 +18,7 @@ from lidar_transfer_tpu.ops import splat as JSp
 from lidar_transfer_tpu_torch.ops import splat as TSp
 from lidar_transfer_tpu_torch.ops import tsdf as TS
 from lidar_transfer_tpu_torch.utils.runtime import cpu_warmup
+from torch_suite import shared_cores, time_limit  # noqa: F401
 
 
 @pytest.fixture(scope="module", autouse=True)

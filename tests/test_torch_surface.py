@@ -26,6 +26,7 @@ from lidar_transfer_tpu_torch.ops import marching as TMa
 from lidar_transfer_tpu_torch.ops import surface as TS
 from lidar_transfer_tpu_torch.ops.tsdf import TSDFState, VolumeSpec
 from lidar_transfer_tpu_torch.utils.runtime import cpu_warmup
+from torch_suite import shared_cores, time_limit  # noqa: F401
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -21,6 +21,7 @@ from lidar_transfer_tpu_torch.models.rangenet import (RangeNet,
                                                       train_step)
 from lidar_transfer_tpu_torch.utils import runtime as RT
 from lidar_transfer_tpu_torch.utils.prefetch import Prefetcher
+from torch_suite import shared_cores, time_limit  # noqa: F401
 
 SPEC = SensorSpec(name="t16", beams=16, fov_up=8.0, fov_down=-22.0,
                   angle_res_hor=360.0 / 128.0)

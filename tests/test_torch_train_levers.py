@@ -42,6 +42,7 @@ from lidar_transfer_tpu_torch.models import rangenet as TR
 from lidar_transfer_tpu_torch.probes import train_levers
 from lidar_transfer_tpu_torch.utils.runtime import cpu_warmup
 from torch_scripts import parser_defaults, script_defaults
+from torch_suite import shared_cores, time_limit  # noqa: F401
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -31,6 +31,7 @@ import torch
 from lidar_transfer_tpu.ops import triangles as JT
 from lidar_transfer_tpu_torch.ops import triangles as TT
 from lidar_transfer_tpu_torch.utils.runtime import cpu_warmup
+from torch_suite import shared_cores, time_limit  # noqa: F401
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -23,6 +23,7 @@ from lidar_transfer_tpu_torch.experiments.segmentation import (LabelMapper,
 from lidar_transfer_tpu_torch.utils import runtime as RT
 from lidar_transfer_tpu_torch.utils.prefetch import Prefetcher
 from lidar_transfer_tpu_torch.utils.runtime import upload
+from torch_suite import shared_cores, time_limit  # noqa: F401
 
 DTYPES = ("float32", "int32", "bool")
 MAPPER = LabelMapper.from_labels({k: str(k) for k in (0, 1, 10, 40, 50,

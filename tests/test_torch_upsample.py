@@ -40,6 +40,7 @@ from lidar_transfer_tpu_torch.ops import projection as TP
 from lidar_transfer_tpu_torch.pipeline import deform as TD
 from lidar_transfer_tpu_torch.utils.runtime import cpu_warmup
 from torch_scripts import REPO, parser_defaults, script_defaults
+from torch_suite import shared_cores, time_limit  # noqa: F401
 
 
 @pytest.fixture(scope="module", autouse=True)
