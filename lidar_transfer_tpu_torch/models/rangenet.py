@@ -17,14 +17,22 @@ Inputs and logits are (B, H, W, C) float32, as in the JAX module; inside,
 the network runs NCHW. Input features per pixel: (range, x, y, z,
 remission), the classic RangeNet 5-channel encoding.
 
+On a CUDA input ``infer`` replays a CUDA graph of the forward and its
+argmax, captured at the first call for each input shape; on any other
+device it runs the forward eagerly.
+
 Spans (``utils/runtime``): ``train_step`` is ``model.step`` with the
 children ``model.forward`` (the loss included), ``model.backward`` and
-``model.optimizer``; ``infer`` is ``model.infer``.
+``model.optimizer``; ``infer`` is ``model.infer``, with the child
+``model.infer.capture`` around each capture.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import threading
+import weakref
 
 import numpy as np
 import torch
@@ -336,8 +344,112 @@ def train_step(model: RangeNet, optimizer: torch.optim.Optimizer,
         return loss.detach()
 
 
+#: CUDA graphs of ``infer`` kept a model, the least recently used dropped
+#: past it: one a sensor geometry in use
+MAX_GRAPHS = 4
+#: eager forwards on a side stream before a capture, so that cuDNN has
+#: chosen its algorithms and PyTorch has made its workspaces
+WARMUP_CALLS = 3
+
+
+class GraphCache:
+    """One model's graphs by input key, for the parameter storage they
+    were captured on: a new storage drops them all, and at most
+    ``MAX_GRAPHS`` are kept."""
+
+    def __init__(self):
+        self.params = None
+        self.graphs: collections.OrderedDict = collections.OrderedDict()
+
+    def get(self, params: tuple, key: tuple, make):
+        """The graph of ``key`` on ``params``, made by ``make()`` where
+        there is none."""
+        if params != self.params:
+            self.params = params
+            self.graphs.clear()
+        if key in self.graphs:
+            self.graphs.move_to_end(key)
+        else:
+            self.graphs[key] = make()
+            while len(self.graphs) > MAX_GRAPHS:
+                self.graphs.popitem(last=False)
+        return self.graphs[key]
+
+
+def graph_keys(model: nn.Module, features: torch.Tensor) -> tuple:
+    """-> (the address of each parameter, the input's shape, dtype and
+    device): what a captured graph reads in place."""
+    params = tuple(p.data_ptr() for p in model.parameters())
+    return params, (tuple(features.shape), features.dtype, features.device)
+
+
+#: the graphs of each model, off the module (its ``state_dict``,
+#: ``deepcopy`` and pickling are untouched)
+_graphs: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+_graphs_lock = threading.Lock()
+#: captures and replays since the last reset_graph_counts()
+_graph_counts = {"captures": 0, "replays": 0}
+
+
+def graph_counts() -> dict[str, int]:
+    return dict(_graph_counts)
+
+
+def reset_graph_counts() -> None:
+    for k in _graph_counts:
+        _graph_counts[k] = 0
+
+
+def _capture(model: RangeNet, features: torch.Tensor):
+    """-> (the static input, the graph, its static output) of the argmax
+    classes of ``model`` at ``features``' shape. Other threads may use the
+    card meanwhile: the capture stream is one that the legacy default
+    stream does not wait on, the capture is checked on this thread alone,
+    and the allocations of other streams stay out of the graph's pool.
+    Autocast's weight-cast cache is off inside the capture (each weight is
+    cast once a forward either way)."""
+    with span("model.infer.capture"), torch.cuda.device(features.device):
+        static_in = features.clone()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(WARMUP_CALLS):
+                model(static_in)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        cache = torch.is_autocast_cache_enabled()
+        torch.set_autocast_cache_enabled(False)
+        try:
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                static_out = torch.argmax(model(static_in),
+                                          dim=-1).to(torch.int32)
+        finally:
+            torch.set_autocast_cache_enabled(cache)
+        _graph_counts["captures"] += 1
+        return static_in, graph, static_out
+
+
 @torch.no_grad()
 def infer(model: RangeNet, features: torch.Tensor) -> torch.Tensor:
-    """-> per-pixel argmax class indices, int32."""
+    """-> per-pixel argmax class indices, int32: a new tensor each call.
+
+    On a CUDA input the forward is a CUDA graph, captured at the first
+    call for the input's shape, dtype and device and the parameters'
+    storage (``model.to`` or ``load_state_dict(assign=True)`` capture
+    anew; an optimizer step or an in-place ``load_state_dict`` is read by
+    the next replay). Each call copies ``features`` into the graph's input
+    and replays it."""
     with span("model.infer"):
-        return torch.argmax(model(features), dim=-1).to(torch.int32)
+        if features.device.type != "cuda":
+            return torch.argmax(model(features), dim=-1).to(torch.int32)
+        params, key = graph_keys(model, features)
+        with _graphs_lock:
+            cache = _graphs.get(model)
+            if cache is None:
+                cache = _graphs[model] = GraphCache()
+            static_in, graph, static_out = cache.get(
+                params, key, lambda: _capture(model, features))
+            static_in.copy_(features)
+            graph.replay()
+            _graph_counts["replays"] += 1
+            return static_out.clone()

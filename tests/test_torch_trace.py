@@ -181,6 +181,28 @@ def test_train_step_and_infer_spans():
                                                           "model.infer"]
 
 
+@pytest.mark.card
+def test_card_infer_captures_inside_its_first_span():
+    """On a card the first ``infer`` of a shape holds the capture; the
+    next is ``model.infer`` alone."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    cfg = RangeNetConfig(num_classes=4, stage_blocks=(1, 1),
+                         stage_features=(32, 64), stem_features=16,
+                         input_channels=5)
+    torch.manual_seed(0)
+    model = RangeNet(cfg).cuda()
+    x = torch.rand(1, 8, 32, 5, device="cuda")
+    with RT.tracing():
+        infer(model, x)
+        infer(model, x)
+    spans = RT.RECORDER.spans()
+    assert [s.name for s in spans] == ["model.infer", "model.infer.capture",
+                                       "model.infer"]
+    assert spans[1].parent == spans[0].id
+    assert spans[0].parent is None and spans[2].parent is None
+
+
 def test_the_buffer_drops_its_oldest_and_counts_them():
     rec = RT.Recorder(capacity=3)
     for i in range(5):
