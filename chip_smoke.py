@@ -184,36 +184,20 @@
    upsampling rows finite over the 4 scans, and remat's final loss
    against base's (and remat_mu_bf16's against mu_bf16's) within
    ``REMAT_LOSS_RTOL`` relative.
-4. Times each kernel four ways: the wrapper's time (CUDA events around
-   back-to-back calls), the device time (the summed durations of the device
-   operations of one call, from a ``torch.profiler`` trace), its plain
-   version, and where PyTorch's library calls compute the same function
-   those calls on the device (for the z-buffer the packing, ``fill_``,
-   ``scatter_reduce_`` amin and the decode; for the confusion counts the
-   cell indices and ``bincount``; ``fill_`` for the writes: timed here,
-   called by nothing in the port), beside its bound from
-   ``probes/bounds.py``; every case of the integrate, its chain and the
-   z-buffer (``probes/cases.py``); row C on the oracle frame's mesh split
-   into its stages (keys, ``torch.sort``, hierarchy, refit, reorder,
-   traversal; CUDA events between them, median of 3) beside their bounds,
-   its total beside the bytes bound and the dense kernel's time, the
-   triangles tested and nodes read a ray on two rows, the peak memory of
-   a call, and the frame's split into stages (median of 3); an empty
-   kernel launch; transfer_fast
-   per frame of every adaption and rolling engine, a darknet53 train
-   step's median ms, peak memory and idle share and an inference's ms,
-   the march kernel's
-   device time beside its bound with the samples a ray (mean, p99, max)
-   and the cycles a sample they imply, the stream rates, fused_state() and
-   export_mesh(), each with the GPU's name and power limit; and profiles
-   the frame of every adaption for its device time, device launches and
-   idle share; on each parallel rank the slab integrate (CUDA events),
-   the probe-and-merge of one source (host clock: gloo reduces on the
-   host) with the bytes it reduces, and the DDP step beside the
-   one-process step, then the NCCL rank's bf16 DDP step beside the
-   one-process step (two ranks on one card measure the collectives'
-   cost, not scaling). Nothing of the earlier paths was cut to make
-   room: the frame timings average 10 passes where they took 20.
+4. Counts the z-buffer's device operations a call with the engine's
+   workspace (at most two, one scratch allocation) and the confusion
+   counts' (at most two); times, on the host clock, ``transfer_fast`` per
+   frame of every adaption and rolling engine, the stream rates,
+   ``fused_state()`` and ``export_mesh()`` with the GPU's name and power
+   limit, the oracle frame's stages, and on each parallel rank the slab
+   integrate, the probe-and-merge of one source with the bytes it
+   reduces, and the DDP step beside the one-process step (gloo on one
+   card, then the NCCL rank's bf16 step: the collectives' cost, not
+   scaling); and profiles the frame of every adaption for its device
+   time, device launches and idle share. A kernel's own time comes from
+   ``python -m lidar_transfer_tpu_torch.probes.cases`` (beside its bound
+   and its library yardstick), and the segmentation cells' from
+   ``benchmark/``.
 
 The front end's wall ms/frame with and without the flags is printed
 beside the GPU's name and power limit.
@@ -221,8 +205,7 @@ beside the GPU's name and power limit.
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists the kernels as JSON (route, source, the TPU kernel replaced, launches
 in all and per frame of each path, the largest difference to the plain
-version, wrapper, device, plain, library and bound ms and what bounds it),
-the one before that the GPU's name and power limit. Any failed check
+version), the one before that the GPU's name and power limit. Any failed check
 raises, and the exit code is then nonzero. Without a CUDA device it exits
 with 1 at once. It fails if ``jax``, the JAX package, matplotlib or PIL
 was imported (the card machine has neither of the last two).
@@ -247,7 +230,7 @@ HDL32_PATH = os.path.join(REPO, "configs", "hdl32.yaml")
 sys.path.insert(0, REPO)
 
 from lidar_transfer_tpu_torch.probes.timing import (  # noqa: E402
-    bf16_ulp, cuda_ms, device_ms, gpu_line, whole_trace)
+    bf16_ulp, device_ms, gpu_line, whole_trace)
 
 
 def check(cond, what: str) -> None:
@@ -1091,60 +1074,11 @@ def _check_zbuffer_cases(torch, rng) -> None:
           f"plain, {ws.allocations} scratch allocations")
 
 
-def _library_times(torch, pix_t, key_t, npix, pred_t, tgt_t, C) -> dict:
-    """The z-buffer's and the confusion counts' whole function in PyTorch
-    library calls, from the kernels' own inputs, timed here as yardsticks
-    (called by nothing in the port): the packing of (key bits << 32) |
-    index, the reset of the buffer (``fill_``), ``scatter_reduce_`` amin
-    and the decode to winners; the cell indices (pred * C + target, C * C
-    for a stray id) and ``bincount``. Each is checked against its kernel's
-    result. -> {kernel: (wrapper ms, device ms, device operations a
-    call)}."""
-    from lidar_transfer_tpu_torch.metrics import confusion as TF
-    from lidar_transfer_tpu_torch.ops import projection as TP
-
-    dev = pix_t.device
-    n = pix_t.shape[0]
-    empty = torch.iinfo(torch.int64).max
-    buf = torch.empty(npix + 1, dtype=torch.int64, device=dev)
-
-    def zbuffer():
-        words = ((key_t.view(torch.int32).to(torch.int64) << 32)
-                 | torch.arange(n, device=dev))
-        where = torch.where((pix_t < 0) | (pix_t >= npix), npix,
-                            pix_t).to(torch.int64)     # npix: the overflow
-        buf.fill_(empty)
-        buf.scatter_reduce_(0, where, words, "amin")
-        won = buf[:npix]
-        return torch.where(won == empty, -1,
-                           won & 0xFFFFFFFF).to(torch.int32)
-
-    def confusion():
-        ok = (pred_t >= 0) & (pred_t < C) & (tgt_t >= 0) & (tgt_t < C)
-        cells = torch.where(ok, pred_t * C + tgt_t, C * C).to(torch.int64)
-        return torch.bincount(cells, minlength=C * C + 1)[:C * C].reshape(
-            C, C)
-
-    check(torch.equal(zbuffer(), TP.zbuffer_winners(pix_t, key_t, npix)),
-          "the z-buffer's library function != the z-buffer kernel")
-    ref = TF.confusion_matrix(pred_t, tgt_t, C)
-    check(torch.equal(confusion().to(ref.dtype), ref),
-          "the confusion's library function (bincount) != its kernel")
-    out = {}
-    for name, fn in (("zbuffer", zbuffer), ("confusion", confusion)):
-        d_ms, ops, names = device_ms(fn, 50)
-        out[name] = (cuda_ms(fn, 200), d_ms, ops)
-        print(f"{name} library function: wrapper {out[name][0]:.4f} ms, "
-              "device " + ("not measured" if d_ms is None else
-                           f"{d_ms:.4f} ms in {ops} operations ({names})"))
-    return out
-
-
 def kernel_checks(torch, kernels) -> tuple:
     """Phase 1: build the kernels and hold each against its plain version
     on the card, filling ``kernels`` with a row each. -> the z-buffer's and
-    the confusion's inputs (pix, key, npix, pred, target, C), which phase 4
-    times."""
+    the confusion's inputs (pix, key, npix, pred, target, C), whose device
+    operations ``main`` counts."""
     from lidar_transfer_tpu_torch import _build
     from lidar_transfer_tpu_torch.metrics import confusion as TF
     from lidar_transfer_tpu_torch.ops import projection as TP
@@ -1252,7 +1186,6 @@ def main() -> int:
         return 1
     from lidar_transfer_tpu_torch.metrics import confusion as TF
     from lidar_transfer_tpu_torch.ops import projection as TP
-    from lidar_transfer_tpu_torch.probes import bounds
 
     dev = torch.device("cuda")
     gpu = gpu_line()
@@ -1263,73 +1196,43 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}")
     kernels = {}
     pix_t, key_t, npix, pred_t, tgt_t, C = kernel_checks(torch, kernels)
-    n, m = pix_t.shape[0], pred_t.shape[0]
 
-    # ------------------------- 4a. the two small kernels, timed four ways
+    # ------------- the two small kernels' device operations and scratch
     ws = TP.ZBufferWorkspace(dev)
-    zb = bounds.zbuffer(n, npix)
-    lib = _library_times(torch, pix_t, key_t, npix, pred_t, tgt_t, C)
-    call = lambda: TP.zbuffer_winners(pix_t, key_t, npix,  # noqa: E731
-                                      workspace=ws)
-    small = {"zbuffer": call}
-    z_dev, z_ops, z_names = device_ms(call, 50)
-    kernels["zbuffer"].update(
-        ms=cuda_ms(call, 200), device_ms=z_dev,
-        plain_ms=cuda_ms(lambda: TP.zbuffer_winners_plain(
-            pix_t, key_t, npix), 50),
-        bound_ms=zb.ms, bound_by=zb.by, library_ms=lib["zbuffer"][1],
-        library_wrapper_ms=lib["zbuffer"][0],
-        library_ops=lib["zbuffer"][2])
+    _, z_ops, z_names = device_ms(lambda: TP.zbuffer_winners(
+        pix_t, key_t, npix, workspace=ws), 50)
     print(f"zbuffer with the engine's workspace: {z_ops:.1f} device "
           f"operations a call ({z_names}), {ws.allocations} scratch "
-          f"allocation in {2 + 50 + 2 + 200} calls {tag}")
+          f"allocation {tag}")
     check(z_ops <= 2 and ws.allocations == 1, "a z-buffer call with a "
           "workspace issues more than two device operations or allocates")
-    cb = bounds.confusion(m, C)
-    call = lambda: TF.confusion_matrix(pred_t, tgt_t, C)  # noqa: E731
-    small["confusion"] = call
-    c_dev, c_ops, c_names = device_ms(call, 50)
-    print(f"confusion N={m} C={C}: {c_ops:.1f} device operations a call "
-          f"({c_names}) {tag}")
+    _, c_ops, c_names = device_ms(
+        lambda: TF.confusion_matrix(pred_t, tgt_t, C), 50)
+    print(f"confusion N={pred_t.shape[0]} C={C}: {c_ops:.1f} device "
+          f"operations a call ({c_names}) {tag}")
     check(c_ops <= 2, "a confusion call takes more than two device "
           "operations")
-    kernels["confusion"].update(
-        ms=cuda_ms(call, 200), device_ms=c_dev,
-        plain_ms=cuda_ms(lambda: TF.confusion_scatter(pred_t, tgt_t, C),
-                         50),
-        bound_ms=cb.ms, bound_by=cb.by, library_ms=lib["confusion"][1],
-        library_wrapper_ms=lib["confusion"][0],
-        library_ops=lib["confusion"][2])
-    for name in ("zbuffer", "confusion"):
-        k = kernels[name]
-        if k["device_ms"] and k["library_ms"]:
-            print(f"{name}: kernel device {k['device_ms']:.4f} ms, its "
-                  f"library function {k['library_ms']:.4f} ms in "
-                  f"{k['library_ops']} operations "
-                  f"({k['library_ms'] / k['device_ms']:.2f} x) {tag}")
 
     # ------------------------------------------------------ 2. the paths
     paths, per_frame = {}, {}
     with tempfile.TemporaryDirectory(prefix="lt_smoke_") as work:
-        paths["mergemesh"] = _main_path(torch, work, kernels, tag, per_frame)
+        paths["mergemesh"] = _main_path(torch, work, tag, per_frame)
         torch.cuda.empty_cache()
-        paths["mesh"] = _mesh_path(torch, work, kernels, tag, per_frame)
+        paths["mesh"] = _mesh_path(torch, work, tag, per_frame)
         torch.cuda.empty_cache()
         paths["cp"] = _cp_path(torch, work, tag, per_frame)
         paths["catmesh"] = _catmesh_path(torch, work, tag, per_frame)
         torch.cuda.empty_cache()
-        paths["oracle"] = _oracle_path(torch, work, kernels, tag, per_frame)
+        paths["oracle"] = _oracle_path(torch, work, tag, per_frame)
         torch.cuda.empty_cache()
         paths["upsample"] = _upsample_path(torch, work, tag, per_frame)
         torch.cuda.empty_cache()
         paths["raymarch"] = _raymarch_path(torch, work, kernels, tag,
                                            per_frame)
         torch.cuda.empty_cache()
-        paths["rolling"] = _rolling_path(torch, work, kernels, tag,
-                                         per_frame)
+        paths["rolling"] = _rolling_path(torch, work, tag, per_frame)
         torch.cuda.empty_cache()
-        paths["segmentation"] = _segmentation_path(torch, work, tag,
-                                                   per_frame)
+        paths["segmentation"] = _segmentation_path(torch, work, per_frame)
         torch.cuda.empty_cache()
         paths["parallel"] = _parallel_path(torch, work, tag, per_frame)
         torch.cuda.empty_cache()
@@ -1338,34 +1241,21 @@ def main() -> int:
         paths["runners"] = _runners_path(torch, work, tag, per_frame)
         torch.cuda.empty_cache()
     paths["probes"] = per_frame["probes"] = _probe_path(torch, kernels, tag)
-    _kernel_cases(torch, kernels, tag)
     check("jax" not in sys.modules, "the port imported jax")
     check(not any(m == "lidar_transfer_tpu"
                   or m.startswith("lidar_transfer_tpu.")
                   for m in sys.modules), "the port imported the JAX package")
     check(not any(m.split(".")[0] in ("matplotlib", "PIL")
                   for m in sys.modules), "the port imported matplotlib or PIL")
-    for name, call in small.items():
-        if kernels[name]["device_ms"] is None:
-            # every trace of it lost records above: once more, now that
-            # the process has traced the paths
-            kernels[name]["device_ms"] = device_ms(call, 50)[0]
     rows = []
     for name, k in kernels.items():
-        k.setdefault("library_ms", None)
         counter = k.pop("counter", name)
         k["launches"] = sum(c[counter] for c in paths.values())
         k["launches_per_frame"] = {
             path: c[counter] for path, c in per_frame.items()
             if c.get(counter)}
-        check(k["device_ms"] is not None, f"kernel {name}: the profiler "
-              "gave no whole trace of its device operations")
-        print(f"kernel {name}: wrapper {k['ms']:.4f} ms, device "
-              f"{k['device_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms by "
-              f"{k['bound_by']} (share reached "
-              f"{k['bound_ms'] / k['device_ms']:.3f}), plain "
-              f"{k['plain_ms']:.4f} ms, library {k['library_ms']} ms, "
-              f"launches per frame {k['launches_per_frame']} {tag}")
+        print(f"kernel {name}: max |diff| {k['max_abs_err']:g}, launches "
+              f"{k['launches']}, per frame {k['launches_per_frame']}")
         rows.append(dict(name=name, **k))
     print(gpu)
     print(json.dumps({"kernels": rows}))
@@ -1460,57 +1350,7 @@ def _launches_since(before: dict, per: float = 1.0) -> dict:
             for k, v in _build.launch_counts().items() if v > before[k]}
 
 
-def _kernel_cases(torch, kernels, tag) -> None:
-    """Every case of rows 1, 1b and A, and rows 2 and 3, at the reference
-    point beside its bound (``probes/cases.py``, the table ``PERF.md``
-    keeps); the integrate's, the chain's and the table's JSON rows take
-    the case their path launches (float32 state with the table)."""
-    from lidar_transfer_tpu_torch.probes import cases
-
-    # row C's case ("mesh") takes an oracle frame: _oracle_path times it
-    rows = {r["case"]: r for r in cases.measure(
-        tuple(g for g in cases.GROUPS if g != "mesh"))}
-    torch.cuda.empty_cache()
-    for name, r in rows.items():
-        d = r["device_ms"]
-        print(f"case {name}: wrapper {r['ms']:.4f} ms, device "
-              + ("not measured" if d is None else
-                 f"{d:.4f} ms ({r['device_ops']:.1f} operations), share of "
-                 f"the bound {r['bound_ms'] / d if d else 0:.3f}")
-              + f", bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
-              f"({r['bytes']} bytes) {r['note']} {tag}")
-    dims = "x".join(map(str, cases.DIMS))
-    for kernel, case in (
-            ("tsdf_integrate", f"single {dims} f32 reset no weight, table"),
-            ("tsdf_integrate_chain", f"chain S=3 {dims} f32, table"),
-            ("tsdf_geometry", f"geometry table {dims} fast")):
-        r = rows[case]
-        kernels[kernel].update(ms=r["ms"], device_ms=r["device_ms"],
-                               bound_ms=r["bound_ms"],
-                               bound_by=r["bound_by"])
-    empty = rows["empty kernel launch"]["device_ms"]
-    z = kernels["zbuffer"]["device_ms"]
-    if empty and z:
-        print(f"zbuffer device time {z:.5f} ms = {z / empty:.2f} x an empty "
-              f"kernel launch's {empty:.5f} ms (aim: within 3 x) {tag}")
-    c = kernels["confusion"]
-    if empty and c["device_ms"]:
-        # the bound lies under an empty launch, the floor of any kernel
-        print(f"confusion device time {c['device_ms']:.5f} ms = "
-              f"{c['device_ms'] / empty:.2f} x an empty kernel launch's "
-              f"{empty:.5f} ms, the floor "
-              f"({max(c['bound_ms'], empty):.5f} ms); share of "
-              f"the bytes' bound "
-              f"{c['bound_ms'] / c['device_ms']:.3f} {tag}")
-    g = {m: rows[f"geometry table {dims} {m}"]["device_ms"]
-         for m in ("fast", "exact")}
-    if all(g.values()):
-        print(f"geometry table {dims}: fast mode {g['fast']:.4f} ms, exact "
-              f"mode (the kernel before) {g['exact']:.4f} ms, "
-              f"{g['exact'] / g['fast']:.2f} x {tag}")
-
-
-def _main_path(torch, work, kernels, tag, per_frame):
+def _main_path(torch, work, tag, per_frame):
     """Phases 2-4 of the mergemesh path in the scratch directory ``work``
     (it writes the synthetic dataset ``work/kitti``); returns the launch
     counts of the path."""
@@ -1519,7 +1359,6 @@ def _main_path(torch, work, kernels, tag, per_frame):
     from lidar_transfer_tpu_torch.datasets import synthetic
     from lidar_transfer_tpu_torch.ops import projection as TP
     from lidar_transfer_tpu_torch.ops import tsdf as TS
-    from lidar_transfer_tpu_torch.ops.tsdf_cuda import integrate_cuda
     from lidar_transfer_tpu_torch.pipeline import deform as TD
     from lidar_transfer_tpu_torch.pipeline.multiscan import (load_window,
                                                              merge_window,
@@ -1620,25 +1459,11 @@ def _main_path(torch, work, kernels, tag, per_frame):
         del ref
 
     # ------------------------------------------------------------ 4. timing
-    integ = lambda fn: lambda: fn(  # noqa: E731
-        state, eng.vol_spec, ri.range, ri.label, ri.remission, **fkw)
-    k_ms = cuda_ms(integ(integrate_cuda), 10)
-    p_ms = cuda_ms(integ(TS.integrate), 2, warmup=1)
-    geom = eng._ensure_geom(hdl32.fov_up, hdl32.fov_down, HDL64.H)
-    kt_ms = cuda_ms(lambda: integrate_cuda(
-        state, eng.vol_spec, ri.range, ri.label, ri.remission, v_tab=geom,
-        **fkw), 10)
-    kernels["tsdf_integrate"].update(ms=k_ms, plain_ms=p_ms)
-    gvox = state.tsdf.numel() / (k_ms * 1e-3) / 1e9
-    print(f"integrate {eng.vol_dims} reset, no weight write: kernel "
-          f"{k_ms:.3f} ms ({gvox:.2f} Gvoxel/s), with the geometry table "
-          f"{kt_ms:.3f} ms, plain {p_ms:.1f} ms {tag}")
-
     wins = [load_window(seq, cfg, i, cap, dev) for i in range(6)]
-    frame_ms = cuda_ms(lambda: [eng.transfer_fast(w)
-                                        for w in wins], 10) / len(wins)
+    frame_ms = _wall_ms(torch, lambda: [eng.transfer_fast(w)
+                                          for w in wins], 10) / len(wins)
     stacked = stack_windows(wins[:4])
-    stream_ms = cuda_ms(lambda: eng.transfer_stream(stacked), 10)
+    stream_ms = _wall_ms(torch, lambda: eng.transfer_stream(stacked), 10)
     print(f"transfer_fast HDL64->HDL32: {frame_ms:.3f} ms/frame "
           f"({1e3 / frame_ms:.1f} scans/s) {tag}")
     print(f"transfer_stream 4 frames: {stream_ms:.3f} ms/batch "
@@ -1647,14 +1472,12 @@ def _main_path(torch, work, kernels, tag, per_frame):
     return counts
 
 
-def _mesh_path(torch, work, kernels, tag, per_frame):
+def _mesh_path(torch, work, tag, per_frame):
     """Phases 2-4 of the mesh adaption, three scans per window, on the
     dataset ``work/kitti``; returns the launch counts of the path."""
     from lidar_transfer_tpu_torch import _build
     from lidar_transfer_tpu_torch.config import HDL64, SensorSpec
     from lidar_transfer_tpu_torch.ops import tsdf as TS
-    from lidar_transfer_tpu_torch.ops.tsdf_cuda import (
-        integrate_chain_cuda, precompute_geometry_cuda)
     from lidar_transfer_tpu_torch.pipeline import deform as TD
     from lidar_transfer_tpu_torch.pipeline.multiscan import load_window
 
@@ -1753,7 +1576,7 @@ def _mesh_path(torch, work, kernels, tag, per_frame):
 
     # ------------------------------------------------------ 4. timing
     wins = [load_window(seq, cfg, i, cap, dev) for i in range(1, 5)]
-    fold_ms = cuda_ms(lambda: [eng.transfer_fast(w)
+    fold_ms = _wall_ms(torch, lambda: [eng.transfer_fast(w)
                                        for w in wins], 5) / len(wins)
     print(f"mesh transfer_fast (fold) HDL64->HDL32, 3 scans: "
           f"{fold_ms:.3f} ms/frame ({1e3 / fold_ms:.1f} scans/s) {tag}")
@@ -1773,45 +1596,12 @@ def _mesh_path(torch, work, kernels, tag, per_frame):
     n_tri = eng.export_mesh(os.path.join(work, "export.ply"), colorize=lut)
     print(f"export_mesh (cells, {eng.vol_dims} f32): {n_tri} triangles in "
           f"{time.perf_counter() - t:.2f} s wall {tag}")
-
-    spec = eng.vol_spec
-    state = eng.fused_state()
-    _, ris = eng._project_window_scans(wins[0])
-    stacks = [torch.stack([getattr(ri, f) for ri in ris])
-              for f in ("range", "label", "remission")]
-    geom = eng._ensure_geom(HDL64.fov_up, HDL64.fov_down, HDL64.H)
-    kw = dict(fov_up_deg=HDL64.fov_up, fov_down_deg=HDL64.fov_down)
-    compact_state = spec.init_state(dev, compact=True)
-    for st in (state, compact_state):
-        for v_tab in (geom, None):
-            k_ms = cuda_ms(lambda: integrate_chain_cuda(
-                st, spec, *stacks, v_tab=v_tab, **kw), 10)
-            p_ms = cuda_ms(lambda: TS.integrate_chain(
-                st, spec, *stacks, v_tab=v_tab, **kw), 2, warmup=1)
-            name = "compact" if st is compact_state else "f32"
-            print(f"chain S=3 {spec.dims} {name} table={v_tab is not None}:"
-                  f" kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms {tag}")
-            if st is state and v_tab is not None:
-                kernels["tsdf_integrate_chain"].update(ms=k_ms,
-                                                       plain_ms=p_ms)
-    del compact_state
-    g_ms = cuda_ms(lambda: precompute_geometry_cuda(
-        spec, HDL64.fov_up, HDL64.fov_down, HDL64.H, device=dev), 10)
-    ge_ms = cuda_ms(lambda: precompute_geometry_cuda(
-        spec, HDL64.fov_up, HDL64.fov_down, HDL64.H, device=dev,
-        exact=True), 10)
-    gp_ms = cuda_ms(lambda: TS.precompute_geometry(
-        spec, HDL64.fov_up, HDL64.fov_down, HDL64.H, device=dev), 2,
-        warmup=1)
-    kernels["tsdf_geometry"].update(ms=g_ms, plain_ms=gp_ms)
-    print(f"geometry table {spec.dims}: kernel {g_ms:.3f} ms (its exact "
-          f"mode {ge_ms:.3f} ms), plain {gp_ms:.1f} ms {tag}")
-    del state, eng
+    del eng
     torch.cuda.empty_cache()
     vol = TD.TransferEngine(HDL64, hdl32, cfg, fixed_bounds=True,
                             device=dev, mesh_attrs="volume",
                             compact_volume=True)
-    vol_ms = cuda_ms(lambda: [vol.transfer_fast(w)
+    vol_ms = _wall_ms(torch, lambda: [vol.transfer_fast(w)
                                       for w in wins], 3) / len(wins)
     before = _build.launch_counts()
     vv = vol.transfer_fast(wins[0])
@@ -1885,7 +1675,8 @@ def _cp_path(torch, work, tag, per_frame):
                                                    "cpu"))[0], "cp (frame 0)")
 
     wins = [load_window(seq, cfg, i, cap, dev) for i in range(6)]
-    ms = cuda_ms(lambda: [eng.transfer(w) for w in wins], 10) / len(wins)
+    ms = _wall_ms(torch, lambda: [eng.transfer(w) for w in wins],
+                  10) / len(wins)
     print(f"cp transfer HDL64->HDL32: {ms:.3f} ms/frame "
           f"({1e3 / ms:.1f} scans/s) {tag}")
     _profile_frames(torch, eng, wins, ms, tag)
@@ -1941,8 +1732,9 @@ def _catmesh_path(torch, work, tag, per_frame):
     ms = {"mergemesh": [], "catmesh": []}
     for name, e in (("mergemesh", mm_eng), ("catmesh", eng),
                     ("catmesh", eng), ("mergemesh", mm_eng)):
-        ms[name].append(cuda_ms(lambda: [e.transfer_fast(w) for w in wins],
-                                10) / len(wins))
+        ms[name].append(_wall_ms(torch, lambda: [e.transfer_fast(w)
+                                                 for w in wins], 10)
+                        / len(wins))
     print("catmesh transfer_fast HDL64->HDL32: " + "; ".join(
         f"{k} {' / '.join(f'{v:.3f}' for v in vs)} ms/frame"
         for k, vs in ms.items()) + f" (timed mergemesh, catmesh, catmesh, "
@@ -1951,7 +1743,7 @@ def _catmesh_path(torch, work, tag, per_frame):
     return counts
 
 
-def _oracle_path(torch, work, kernels, tag, per_frame):
+def _oracle_path(torch, work, tag, per_frame):
     """Catmesh's oracle engine at the reference point on the dataset
     ``work/kitti`` (HDL64 -> HDL32, fixed bounds, float32 state): three
     frames of scan 0 through ``transfer_fast``, each stage timed
@@ -1961,8 +1753,7 @@ def _oracle_path(torch, work, kernels, tag, per_frame):
     and against ``raycast_mesh_plain`` and ``raycast_mesh_bvh_plain`` on
     two full rows (bit for bit), the card's build against
     ``build_bvh_plain`` (equal), and against the port's native BVH on all
-    rays; row C's stages timed beside their bounds and the dense kernel's
-    time; the frame against the splat engine's. Returns the launch counts
+    rays; the frame against the splat engine's. Returns the launch counts
     of the path."""
     from lidar_transfer_tpu_torch import _build, native
     from lidar_transfer_tpu_torch.config import HDL64, SensorSpec
@@ -1970,7 +1761,6 @@ def _oracle_path(torch, work, kernels, tag, per_frame):
     from lidar_transfer_tpu_torch.ops import triangles_cuda as TC
     from lidar_transfer_tpu_torch.pipeline import deform as TD
     from lidar_transfer_tpu_torch.pipeline.multiscan import load_window
-    from lidar_transfer_tpu_torch.probes import bounds
 
     dev = torch.device("cuda")
     cfg, _ = _config(work, "oracle", adaption="catmesh")
@@ -2034,7 +1824,7 @@ def _oracle_path(torch, work, kernels, tag, per_frame):
           "oracle frame mostly empty or apart from the splat frame")
     del splat
 
-    # ------ 3. row C on the frame's mesh: plain, dense, native BVH, timing
+    # ------------- 3. row C on the frame's mesh: plain, dense, native BVH
     tris = torch.from_numpy(mesh.verts).to(dev)[
         torch.from_numpy(mesh.faces).to(dev).to(torch.int64)].contiguous()
     origin = torch.zeros(3, device=dev)
@@ -2042,17 +1832,13 @@ def _oracle_path(torch, work, kernels, tag, per_frame):
     R = rays.shape[0]
     rows = rays.reshape(hdl32.H, hdl32.W, 3)[15:17].reshape(-1, 3)
     rows = rows.contiguous()
-    torch.cuda.synchronize()
-    t = time.perf_counter()
     ref = TT.raycast_mesh_plain(origin, rows, tris, chunk=16384)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t) * 1e3
     sub = TT.raycast_mesh(origin, rows, tris)
     torch.cuda.synchronize()
     print(f"row C on rows 15-16 ({rows.shape[0]} rays) against the whole "
           f"mesh: {int(ref.hit.sum())} hits, t mismatches "
           f"{int((sub.t != ref.t).sum())}, tri mismatches "
-          f"{int((sub.tri != ref.tri).sum())}; plain {plain_ms:.1f} ms")
+          f"{int((sub.tri != ref.tri).sum())}")
     check(all(torch.equal(a, b) for a, b in zip(sub, ref)),
           "oracle: row C != raycast_mesh_plain on the frame's mesh")
     check(bool(ref.hit.any()), "oracle: rows 15-16 hit nothing")
@@ -2060,31 +1846,16 @@ def _oracle_path(torch, work, kernels, tag, per_frame):
     # plain traversal of rows 15-16 through the frame's tree
     reach = TT.ray_reach(origin, rays)
     built = TT.build_bvh(tris, reach)
-    plain_stage = {}
-
-    def timed(name, fn):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        plain_stage[name] = (time.perf_counter() - t) * 1e3
-        return out
-
-    keys, boxes = timed("mesh_bvh_keys", lambda: TT.bvh_keys_plain(
-        tris, TT.scene_scale(tris), reach))
-    keys, leaf = timed("sort", lambda: TT.leaf_order(keys))
-    children, parents = timed("mesh_bvh_hierarchy",
-                              lambda: TT.bvh_hierarchy_plain(keys))
-    nodes, height = timed("mesh_bvh_refit", lambda: TT.bvh_refit_plain(
-        children, boxes[leaf.to(torch.int64)]))
-    plain_bvh = TT.MeshBVH(nodes, parents, leaf, timed(
-        "mesh_bvh_reorder", lambda: TT.bvh_reorder_plain(tris, leaf)),
-        keys, height)
+    keys, boxes = TT.bvh_keys_plain(tris, TT.scene_scale(tris), reach)
+    keys, leaf = TT.leaf_order(keys)
+    children, parents = TT.bvh_hierarchy_plain(keys)
+    nodes, height = TT.bvh_refit_plain(children, boxes[leaf.to(torch.int64)])
+    plain_bvh = TT.MeshBVH(nodes, parents, leaf,
+                           TT.bvh_reorder_plain(tris, leaf), keys, height)
     same_build = _same_bvh(torch, built, plain_bvh)
     del keys, boxes, children, parents, nodes, plain_bvh
     stats = {}
-    trav = timed("mesh_raycast", lambda: TT.raycast_mesh_bvh_plain(
-        origin, rows, built, stats))
+    trav = TT.raycast_mesh_bvh_plain(origin, rows, built, stats)
     tests, visits = (stats[k].double().cpu().numpy()
                      for k in ("tests", "nodes"))
     per_ray = {name: dict(mean=float(x.mean()),
@@ -2094,8 +1865,7 @@ def _oracle_path(torch, work, kernels, tag, per_frame):
           f"{TC.STACK}); the card's build equal to build_bvh_plain: "
           f"{same_build}; rows 15-16 through it by raycast_mesh_bvh_plain: "
           f"triangles tested a ray {per_ray['tests']}, internal nodes "
-          f"read a ray {per_ray['nodes']}; plain build stages (ms) "
-          f"{ {k: round(v, 1) for k, v in plain_stage.items()} }")
+          f"read a ray {per_ray['nodes']}")
     check(same_build, "oracle: the card's build != build_bvh_plain")
     check(all(torch.equal(a, b) for a, b in zip(trav, ref)),
           "oracle: raycast_mesh_bvh_plain != raycast_mesh_plain")
@@ -2143,92 +1913,8 @@ def _oracle_path(torch, work, kernels, tag, per_frame):
     check(rng_err <= 1e-4 and bool(
         (vs.remission.reshape(-1).cpu().numpy() == nat.remissions)[
             same].all()), "oracle: the frame's attributes != native's")
-    del full, dense, trav, ref, sub
-
-    # ------ 4. row C's time: each stage by CUDA events, medians of 3
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    splits = [_bvh_split(torch, tris, origin, rays) for _ in range(3)]
-    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
-    med = {k: float(np.median([sp[k] for sp in splits])) for k in splits[0]}
-    total = [cuda_ms(lambda: TT.raycast_mesh(origin, rays, tris), 1,
-                     warmup=0) for _ in range(3)]
-    dense_ms = [cuda_ms(lambda: TC.mesh_raycast_dense_cuda(
-        origin, rays, tris), 1, warmup=0) for _ in range(3)]
-    sub_ms = [cuda_ms(lambda: TT.raycast_mesh(origin, rows, tris), 1,
-                      warmup=0) for _ in range(3)]
-    tot, dn = float(np.median(total)), float(np.median(dense_ms))
-    rb = bounds.mesh_raycast(R, T, 1)
-    stage_bounds = {"mesh_bvh_keys": bounds.bvh_keys(T),
-                    "sort": bounds.bvh_sort(T),
-                    "mesh_bvh_hierarchy": bounds.bvh_hierarchy(T),
-                    "mesh_bvh_refit": bounds.bvh_refit(T),
-                    "mesh_bvh_reorder": bounds.bvh_reorder(T)}
-    runs = {k: " / ".join(f"{sp[k]:.4f}" for sp in splits) for k in med}
-    print(f"row C on the oracle frame (R = {R}, T = {T}), device ms by "
-          f"CUDA events, median of 3 (the 3 runs): " + "; ".join(
-              f"{k} {med[k]:.4f} ({runs[k]})"
-              + (f" bound {stage_bounds[k].ms:.4f}" if k in stage_bounds
-                 else "") for k in med)
-          + f"; total (raycast_mesh, the stack check's wait included) "
-          f"{tot:.4f} ({' / '.join(f'{x:.4f}' for x in total)}); the dense "
-          f"kernel, the parent design, {dn:.2f} "
-          f"({' / '.join(f'{x:.2f}' for x in dense_ms)}); bound "
-          f"{rb.ms:.4f} by {rb.by} ({rb.bytes} bytes), share "
-          f"{rb.ms / tot:.4f}; dense design's figure "
-          f"{bounds.mesh_raycast_dense(R, T, 1).ms:.2f} ms by operations; "
-          f"rows 15-16 alone {float(np.median(sub_ms)):.4f} ms; peak "
-          f"memory of a call {peak:.0f} MiB above the mesh {tag}")
-    for k, b in stage_bounds.items():
-        if k in kernels:
-            kernels[k].update(ms=med[k], device_ms=med[k],
-                              plain_ms=plain_stage[k], bound_ms=b.ms,
-                              bound_by=b.by, library_ms=None, triangles=T)
-    kernels["mesh_raycast"].update(
-        ms=tot, device_ms=med["traversal"],
-        plain_ms=plain_stage["mesh_raycast"], plain_rays=int(rows.shape[0]),
-        subset_ms=float(np.median(sub_ms)), bound_ms=rb.ms, bound_by=rb.by,
-        library_ms=None, triangles=T, rays=R, row_c_ms=tot,
-        row_c_share=rb.ms / tot, per_ray=per_ray, peak_mib=peak)
-    db = bounds.mesh_raycast_dense(R, T, 1)
-    kernels["mesh_raycast_dense"].update(
-        ms=dn, device_ms=dn, plain_ms=plain_ms,
-        plain_rays=int(rows.shape[0]), bound_ms=db.ms, bound_by=db.by,
-        library_ms=None, triangles=T, rays=R)
-    del tris
+    del full, dense, trav, ref, sub, tris
     return counts
-
-
-def _bvh_split(torch, tris, origin, rays) -> dict:
-    """One call of row C on the card, stage by stage, with a CUDA event
-    between stages: -> ms of the scene's grid and the rays' reach (glue),
-    the keys, the sort, the hierarchy, the refit, the reorder and the
-    traversal."""
-    from lidar_transfer_tpu_torch.ops import triangles as TT
-    from lidar_transfer_tpu_torch.ops import triangles_cuda as TC
-
-    names = ("glue", "mesh_bvh_keys", "sort", "mesh_bvh_hierarchy",
-             "mesh_bvh_refit", "mesh_bvh_reorder", "traversal")
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(8)]
-    torch.cuda.synchronize()
-    ev[0].record()
-    scene, reach = TT.scene_scale(tris), TT.ray_reach(origin, rays)
-    ev[1].record()
-    keys, boxes = TC.bvh_keys_cuda(tris, scene, reach)
-    ev[2].record()
-    keys, leaf = TT.leaf_order(keys)
-    ev[3].record()
-    nodes, parents, counters = TC.bvh_hierarchy_cuda(keys)
-    ev[4].record()
-    height = TC.bvh_refit_cuda(nodes, parents, counters, leaf, boxes)
-    ev[5].record()
-    bvh = TT.MeshBVH(nodes, parents, leaf, TC.bvh_reorder_cuda(tris, leaf),
-                     keys, height)
-    ev[6].record()
-    _, _, flags = TC.mesh_raycast_cuda(origin, rays, bvh)
-    ev[7].record()
-    TC.check_stack(bvh, flags)
-    return {n: ev[k].elapsed_time(ev[k + 1]) for k, n in enumerate(names)}
 
 
 def _upsample_path(torch, work, tag, per_frame):
@@ -2306,9 +1992,10 @@ def _upsample_path(torch, work, tag, per_frame):
                  "upsampling (frame 0)")
 
     wins = [load_window(seq, cfg, i, cap, dev) for i in range(6)]
-    ms = cuda_ms(lambda: [eng.transfer_fast(w) for w in wins], 10) / len(wins)
+    ms = _wall_ms(torch, lambda: [eng.transfer_fast(w) for w in wins],
+                  10) / len(wins)
     stacked = stack_windows(wins[:4])
-    s_ms = cuda_ms(lambda: eng.transfer_stream(stacked), 10)
+    s_ms = _wall_ms(torch, lambda: eng.transfer_stream(stacked), 10)
     print(f"upsampling transfer_fast HDL64->HDL64x2: {ms:.3f} ms/frame "
           f"({1e3 / ms:.1f} scans/s); transfer_stream 4 frames {s_ms:.3f} "
           f"ms ({4e3 / s_ms:.1f} scans/s) {tag}")
@@ -2319,11 +2006,11 @@ def _upsample_path(torch, work, tag, per_frame):
 def _probe_path(torch, kernels, tag):
     """The probes' rows at 1024x1024x256 (``probes.run``, what ``python
     -m lidar_transfer_tpu_torch.probes all`` prints); returns the launch
-    counts of the path. Each probe kernel's JSON row takes the time of the
-    row its kernel was written for: ``full`` at BX 2 with three outputs,
-    ``precols``, and ``alias_any`` (three outputs in place)."""
+    counts of the path. Each probe kernel's JSON row takes the largest
+    difference of the row its kernel was written for: ``full`` at BX 2
+    with three outputs, ``precols``, and ``alias_any`` (three outputs in
+    place)."""
     from lidar_transfer_tpu_torch import _build, probes
-    from lidar_transfer_tpu_torch.probes import ablate, bounds, parts, write
 
     _build.reset_launch_counts()
     t = time.perf_counter()
@@ -2342,35 +2029,7 @@ def _probe_path(torch, kernels, tag):
               "the probe path")
         r = next(r for r in rows if (r["probe"], r["row"]) == (probe, row))
         k = kernels[name]
-        k.update(ms=r["ms"], device_ms=r["device_ms"],
-                 plain_ms=r["plain_ms"],
-                 max_abs_err=max(k["max_abs_err"], r["max_abs_err"]))
-    for name, b in (
-            ("probe_parts", bounds.probe_parts(parts.DIMS, parts.CW, 3)),
-            ("probe_ablate", bounds.probe_ablate(ablate.DIMS, ablate.CW)),
-            ("probe_write", bounds.probe_write(write.DIMS, [2])),
-            ("probe_alias", bounds.probe_write(
-                write.DIMS, [dt.itemsize for dt in write.ALIAS_DTYPES]))):
-        kernels[name].update(bound_ms=b.ms, bound_by=b.by)
-    # PyTorch's fill of the same tensors on the device: one fill_ for the
-    # write row, three for the alias row
-    for name, (probe, row) in picks.items():
-        if name in ("probe_write", "probe_alias"):
-            kernels[name]["library_ms"] = next(
-                r["plain_device_ms"] for r in rows
-                if (r["probe"], r["row"]) == (probe, row))
-    # rows 6 and 7 on the device beside PyTorch's fill of the same tensors
-    for probe, row, fill in (("write", "BX8 BY1024 bf16 x1", "fill_"),
-                             ("write", "2D rows BR8192 bf16 x1", "fill_"),
-                             ("alias", "alias_any", "three fill_")):
-        r = next(r for r in rows if (r["probe"], r["row"]) == (probe, row))
-        d, p = r["device_ms"], r["plain_device_ms"]
-        print(f"probe_write {row}: device "
-              + ("not measured" if d is None else f"{d:.4f} ms")
-              + f", {fill} of the same tensors "
-              + ("not measured" if p is None else f"{p:.4f} ms")
-              + ("" if d is None or p is None else f" ({d / p:.3f} x)")
-              + f" {tag}")
+        k["max_abs_err"] = max(k["max_abs_err"], r["max_abs_err"])
     return counts
 
 
@@ -2413,7 +2072,6 @@ def _raymarch_path(torch, work, kernels, tag, per_frame):
     from lidar_transfer_tpu_torch.pipeline.multiscan import (load_window,
                                                              merge_window,
                                                              stack_windows)
-    from lidar_transfer_tpu_torch.probes import bounds
 
     dev = torch.device("cuda")
     cfg, _ = _config(work, "raymarch")
@@ -2464,15 +2122,12 @@ def _raymarch_path(torch, work, kernels, tag, per_frame):
     check(torch.equal(got[0].reshape(vs.range.shape), vs.range)
           and torch.equal(got[4].reshape(vs.mask.shape), vs.mask),
           "raymarch: the kernel's march != the engine's frame")
-    torch.cuda.synchronize()
-    t = time.perf_counter()
     ref = RC.raycast_plain(*args)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t) * 1e3
     err = _compare_marches(torch, got, ref, f"raymarch kernel vs plain, "
                            f"the frame's {spec.dims} compact volume and "
                            f"{eng.rays.shape[0]} rays")
-    _time_march(torch, kernels, args, plain_ms, err, tag)
+    k = kernels["raymarch"]
+    k["max_abs_err"] = max(k["max_abs_err"], err)
     del ref, got
 
     # --------------------------------- 3. the frame's outputs, checked
@@ -2512,9 +2167,9 @@ def _raymarch_path(torch, work, kernels, tag, per_frame):
     _card_vs_cpu(vs_small, vs_cpu, "raymarch +-12.8 m (frame 0)")
 
     # ------------------------------------------------------ 4. timing
-    frame_ms = cuda_ms(lambda: [eng.transfer_fast(w) for w in wins],
-                       3) / len(wins)
-    stream_ms = cuda_ms(lambda: eng.transfer_stream(stacked), 3)
+    frame_ms = _wall_ms(torch, lambda: [eng.transfer_fast(w) for w in wins],
+                        3) / len(wins)
+    stream_ms = _wall_ms(torch, lambda: eng.transfer_stream(stacked), 3)
     print(f"raymarch transfer_fast HDL64->HDL32 (compact, integrate in the "
           f"frame): {frame_ms:.3f} ms/frame ({1e3 / frame_ms:.1f} scans/s); "
           f"transfer_stream 4 frames {stream_ms:.3f} ms; hit rate "
@@ -2523,69 +2178,7 @@ def _raymarch_path(torch, work, kernels, tag, per_frame):
     return counts
 
 
-def _march_split(torch, args):
-    """Device ms of one ``RC.raymarch`` call, split into the march kernel's
-    and the packing's, from a profiler trace; (None, None) when no trace
-    was whole."""
-    from lidar_transfer_tpu_torch.ops import raycast as RC
-    from lidar_transfer_tpu_torch.probes.timing import device_split
-
-    split = device_split(lambda: RC.raymarch(*args), 3)
-    if not split:
-        return None, None
-    return (sum(v for k, v in split.items() if "raymarch_kernel" in k),
-            sum(v for k, v in split.items() if "pack_kernel" in k))
-
-
-def _time_march(torch, kernels, args, plain_ms, err, tag):
-    """Row B and its packing on a full-size march ``args``: the kernels'
-    wrapper and device ms beside their bounds (``probes/bounds.py``, from
-    an instrumented plain march: the distinct sectors its data needs), the
-    plain versions' ms, the samples a ray (mean, p99, max) and the cycles
-    a sample that the device time and the longest ray imply at the card's
-    highest SM clock."""
-    from lidar_transfer_tpu_torch.ops import raycast as RC
-    from lidar_transfer_tpu_torch.ops.raycast_cuda import pack_occupancy_cuda
-    from lidar_transfer_tpu_torch.probes import bounds
-    from lidar_transfer_tpu_torch.probes.timing import max_sm_clock_mhz
-
-    rays, origin, occ = args[2], args[3], args[1]
-    R = rays.shape[0]
-    stats = {}
-    RC.raycast_plain(*args, stats=stats)
-    rb = bounds.raymarch(R, origin.reshape(-1, 3).shape[0], stats["steps"],
-                         stats["hits"], sum(stats["sectors"].values()))
-    march_ms, pack_ms = _march_split(torch, args)
-    clock = max_sm_clock_mhz()
-    k = kernels["raymarch"]
-    k.update(ms=cuda_ms(lambda: RC.raymarch(*args), 10), device_ms=march_ms,
-             plain_ms=plain_ms, bound_ms=rb.ms, bound_by=rb.by,
-             max_abs_err=max(k["max_abs_err"], err))
-    pb = bounds.pack_occupancy(occ.shape)
-    p = kernels["raymarch_pack"]
-    p.update(ms=cuda_ms(lambda: pack_occupancy_cuda(occ), 20),
-             device_ms=pack_ms,
-             plain_ms=cuda_ms(lambda: RC.pack_occupancy_plain(occ), 5),
-             bound_ms=pb.ms, bound_by=pb.by)
-    mean = stats["steps"] / R
-    cycles = (None if march_ms is None else
-              march_ms * 1e-3 * clock * 1e6 / stats["samples_max"])
-    print(f"raymarch kernel: device "
-          + ("not measured" if march_ms is None else f"{march_ms:.4f} ms")
-          + f" (bound {rb.ms:.4f} ms by {rb.by}, {rb.bytes} bytes, share "
-          + ("-" if march_ms is None else f"{rb.ms / march_ms:.3f}")
-          + f"), packing {pack_ms} ms (bound {pb.ms:.4f} ms), wrapper "
-          f"{k['ms']:.4f} ms for both, plain {plain_ms:.1f} ms; samples a "
-          f"ray mean {mean:.1f}, p99 {stats['samples_p99']}, max "
-          f"{stats['samples_max']}; "
-          + ("" if cycles is None else f"{cycles:.0f} cycles a sample of "
-             f"the longest ray at {clock:.0f} MHz; ")
-          + f"the march read {stats['inside']} samples inside the box, "
-          f"{stats['occupied']} occupied, {stats['hits']} hits, sectors "
-          f"{stats['sectors']} {tag}")
-
-
-def _rolling_path(torch, work, kernels, tag, per_frame):
+def _rolling_path(torch, work, tag, per_frame):
     """Rolling shutter at the reference point on the dataset ``work/kitti``
     (HDL64 -> HDL32, 2048x2048x208 compact, fixed bounds), frame 0 re-cast
     over the dataset's next pose by ``resynthesize_rolling_shutter``'s
@@ -2663,22 +2256,10 @@ def _rolling_path(torch, work, kernels, tag, per_frame):
     check(torch.equal(got[0].reshape(vs.range.shape), vs.range)
           and torch.equal(got[4].reshape(vs.mask.shape), vs.mask),
           "rolling: the kernel's march != the raymarch engine's frame")
-    torch.cuda.synchronize()
-    t = time.perf_counter()
     ref = RC.raycast_plain(*args)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t) * 1e3
     _compare_marches(torch, got, ref, f"rolling raymarch kernel vs plain, "
                      f"{spec.dims} compact, {rays.shape[0]} rays with (R, 3) "
                      f"origins")
-    stats = {}
-    RC.raycast_plain(*args, stats=stats)
-    march_ms, pack_ms = _march_split(torch, args)
-    print(f"rolling march: device {march_ms} ms (packing {pack_ms} ms), "
-          f"plain {plain_ms:.1f} ms; samples a ray mean "
-          f"{stats['steps'] / rays.shape[0]:.1f}, p99 "
-          f"{stats['samples_p99']}, max {stats['samples_max']}, hits "
-          f"{stats['hits']} {tag}")
     del ref, got, args
 
     # identity pose: the splat engine's rolling frame is its static frame
@@ -2728,11 +2309,11 @@ def _rolling_path(torch, work, kernels, tag, per_frame):
                 eng.transfer_fast(w)
                 eng.resynthesize_rolling_shutter(p, engine=e)
 
-        frame_ms = cuda_ms(frame, 2) / len(wins)
+        frame_ms = _wall_ms(torch, frame, 2) / len(wins)
         eng.transfer_fast(wins[0])
         recast_fn = lambda eng=eng, e=e: (  # noqa: E731
             eng.resynthesize_rolling_shutter(poses[0], engine=e))
-        recast_ms = cuda_ms(recast_fn, 5)
+        recast_ms = _wall_ms(torch, recast_fn, 5)
         d_ms, ops, _ = device_ms(recast_fn, 3)
         print(f"rolling {name}: transfer_fast + re-cast {frame_ms:.3f} "
               f"ms/frame ({1e3 / frame_ms:.1f} scans/s); the re-cast "
@@ -3123,7 +2704,7 @@ def _runners_path(torch, work, tag, per_frame):
           f"{time.perf_counter() - t_phase:.1f} s wall {tag}")
     return counts
 
-def _segmentation_path(torch, work, tag, per_frame):
+def _segmentation_path(torch, work, per_frame):
     """``lt-seg``'s path on the dataset ``work/kitti`` (HDL64, 64x2048):
     ``train_segmentation`` of darknet53 at full width (batch 2, bf16
     compute, float32 parameters, 20 steps, a checkpoint), the checkpoint
@@ -3132,17 +2713,14 @@ def _segmentation_path(torch, work, tag, per_frame):
     z-buffer in every scan's projection, the confusion counts in the
     evaluation), one float32 forward of the trained weights on the card
     (TF32 off) against the CPU, and ``run_workflow("fake_on_real")`` with
-    darknet21 through the CLI's mergemesh transfer. Times a train step and
-    an inference at the same shapes. Returns the launch counts of the
-    path."""
+    darknet21 through the CLI's mergemesh transfer. Returns the launch
+    counts of the path."""
     import dataclasses
 
     from lidar_transfer_tpu_torch import _build
     from lidar_transfer_tpu_torch.experiments import segmentation as SG
     from lidar_transfer_tpu_torch.experiments.workflows import run_workflow
     from lidar_transfer_tpu_torch.models import RangeNet, RangeNetConfig
-    from lidar_transfer_tpu_torch.models.rangenet import infer, train_step
-    from lidar_transfer_tpu_torch.probes import bounds
 
     dev = torch.device("cuda")
     ds = os.path.join(work, "kitti")
@@ -3154,13 +2732,11 @@ def _segmentation_path(torch, work, tag, per_frame):
 
     _build.reset_launch_counts()
     buf = io.StringIO()
-    t = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         model, mapper, spec = SG.train_segmentation(
             ds, steps=steps, batch_size=2, model_cfg=cfg53, seed=0,
             checkpoint_path=ckpt, device=dev)
         torch.cuda.synchronize()
-    train_s = time.perf_counter() - t
     print(buf.getvalue(), end="")
     per_frame["segmentation.train"] = _launches_since(
         dict.fromkeys(_build.launch_counts(), 0), steps)
@@ -3168,8 +2744,7 @@ def _segmentation_path(torch, work, tag, per_frame):
               for line in buf.getvalue().splitlines()
               if line.startswith("step ")]
     print(f"train_segmentation darknet53 {spec.H}x{spec.W}, batch 2, "
-          f"{steps} steps: {train_s:.1f} s wall (first step's cuDNN "
-          f"set-up included), losses {losses} {tag}")
+          f"{steps} steps: losses {losses}")
     check(len(losses) == 3 and all(np.isfinite(losses)),
           "train_segmentation printed no finite losses")
     check(losses[-1] < 0.8 * losses[0], "the darknet53 loss did not fall")
@@ -3196,11 +2771,8 @@ def _segmentation_path(torch, work, tag, per_frame):
     for knn in (False, True):
         root = os.path.join(work, f"seg_pred_{knn}")
         before = _build.launch_counts()
-        t = time.perf_counter()
         n = SG.write_predictions(ds, root, model, mapper, spec, knn=knn,
                                  verbose=False)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
         per_frame[f"segmentation.infer{'_knn' if knn else ''}"] = \
             _launches_since(before, n)
         check(n == len(seq), f"write_predictions wrote {n} scans")
@@ -3215,9 +2787,9 @@ def _segmentation_path(torch, work, tag, per_frame):
         res[knn] = SG.evaluate_semantics(ds, root, device=dev)
         per_frame["segmentation.eval"] = _launches_since(before, n)
         r = res[knn]
-        print(f"write_predictions knn={knn}: {n} scans, {wall:.2f} s wall; "
-              f"evaluate_semantics mIoU {r['miou']:.4f}, present "
-              f"{r['miou_present']:.4f}, acc {r['acc']:.4f} {tag}")
+        print(f"write_predictions knn={knn}: {n} scans; evaluate_semantics "
+              f"mIoU {r['miou']:.4f}, present {r['miou_present']:.4f}, acc "
+              f"{r['acc']:.4f}")
         check(r["scans"] == n and 0 < r["acc"] <= 1
               and np.isfinite(r["miou"]), f"evaluation knn={knn}: {r}")
     counts = _build.launch_counts()
@@ -3234,60 +2806,22 @@ def _segmentation_path(torch, work, tag, per_frame):
         with torch.no_grad():
             card = m32.to(dev)(x)
             bf16 = model(x)
-            t = time.perf_counter()
             cpu = m32.cpu()(x.cpu())
-            cpu_s = time.perf_counter() - t
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = tf32
     agree = float((card.argmax(-1).cpu() == cpu.argmax(-1)).float().mean())
     agree16 = float((bf16.argmax(-1) == card.argmax(-1)).float().mean())
-    print(f"darknet53 float32 forward, card (TF32 off) vs CPU ({cpu_s:.1f} "
-          f"s): argmax agreement {agree:.6f}, max |logit diff| "
+    print(f"darknet53 float32 forward, card (TF32 off) vs CPU: argmax "
+          f"agreement {agree:.6f}, max |logit diff| "
           f"{float((card.cpu() - cpu).abs().max()):.3e}; bf16 compute vs "
           f"float32 on the card: {agree16:.6f}")
     check(agree >= 0.999, "card and CPU argmax disagree")
-    del m32, card, cpu, bf16
-
-    # timing: a train step (batch 2) and an inference (one scan)
-    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
-    tb = dict(features=feats, labels=torch.stack([b[1] for b in batch]),
-              weights=torch.stack([b[2] for b in batch]))
-    step = lambda: train_step(model, opt, tb)  # noqa: E731
-    for _ in range(2):
-        step()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    times = []
-    for _ in range(10):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        step()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    step_ms = float(np.median(times))
-    d_ms, ops, _ = device_ms(step, 2, warmup=1)
-    inf_ms = cuda_ms(lambda: infer(model, feats[:1]), 10)
-    sb = bounds.train_step(bounds.conv_flops(model, feats))
-    print(f"darknet53 train step, batch 2 at {spec.H}x{spec.W}: median "
-          f"{step_ms:.3f} ms (min {min(times):.3f}, max {max(times):.3f}) "
-          f"over 10, peak memory {peak:.2f} GiB, device "
-          + ("not measured" if d_ms is None else
-             f"{d_ms:.3f} ms in {ops:.0f} operations, idle share "
-             f"{1 - d_ms / step_ms:.3f}")
-          + f"; {sb.flops / 1e12:.3f} TFLOP of convolutions a step, "
-          f"{sb.flops / step_ms / 1e9:.1f} TFLOP/s, bound {sb.ms:.3f} ms "
-          f"at the bf16 peak (share {sb.ms / step_ms:.3f}); infer one scan "
-          f"{inf_ms:.3f} ms {tag}")
-    del opt, model, tb, feats, batch
+    del m32, card, cpu, bf16, model, feats, batch
 
     # fake_on_real: darknet21 on the mergemesh transfer, scored on real
     _build.reset_launch_counts()
     cfg, _ = _config(work, "seg_workflow")
-    t = time.perf_counter()
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         wf = run_workflow(
@@ -3298,8 +2832,7 @@ def _segmentation_path(torch, work, tag, per_frame):
     per_frame["segmentation.fake_on_real"] = wf_counts
     print(f"run_workflow fake_on_real (darknet21, 5 steps on 3 "
           f"transferred scans): mIoU {wf['miou']:.4f}, acc "
-          f"{wf['acc']:.4f} on {wf['scans']} real scans, "
-          f"{time.perf_counter() - t:.1f} s wall {tag}")
+          f"{wf['acc']:.4f} on {wf['scans']} real scans")
     check(wf["scans"] == len(seq) and np.isfinite(wf["miou"]),
           f"fake_on_real result {wf}")
     counts = {k: v + wf_counts[k] for k, v in counts.items()}
@@ -3314,8 +2847,8 @@ def _profile_frames(torch, eng, wins, frame_ms, tag):
     """Device time and device launches per frame of ``transfer_fast`` from
     a ``torch.profiler`` trace of the frames ``wins`` (after one pass of
     them inside the trace, see ``timing.whole_trace``); the idle share is
-    1 - device time / the frame time measured with CUDA events (without
-    the profiler, whose own host cost would inflate the frame)."""
+    1 - device time / ``frame_ms``, the frame time measured without the
+    profiler, whose own host cost would inflate the frame."""
     on_dev = whole_trace(lambda: [eng.transfer_fast(w) for w in wins], 1,
                          warmup=1)
     check(on_dev, "the profiler gave no whole trace of the frames (no two "
@@ -3364,9 +2897,10 @@ def _parallel_ddp_setup(torch, work, dev, compute_dtype):
     return model, opt, batch
 
 
-def _step_ms(torch, step, n):
+def _wall_ms(torch, step, n):
     """Median ms of ``n`` calls of ``step``, each ended by a device
-    synchronise (host clock: a gloo step waits on the host)."""
+    synchronise, on the host clock (a frame's host work and a gloo step's
+    wait on the host are in it)."""
     times = []
     for _ in range(n):
         torch.cuda.synchronize()
@@ -3415,7 +2949,7 @@ def _parallel_path(torch, work, tag, per_frame):
         ref_losses = [float(train_step(model, opt, batch))
                       for _ in range(3)]
         torch.save(model.state_dict(), os.path.join(work, "par_ref.pt"))
-        one_ms = _step_ms(torch, lambda: train_step(model, opt, batch), 5)
+        one_ms = _wall_ms(torch, lambda: train_step(model, opt, batch), 5)
         # the entry points' one-process runs: train_segmentation of 3
         # steps at batch 2, and the grid cell run frame after frame
         seg_model, _, _ = SG.train_segmentation(
@@ -3505,8 +3039,8 @@ def _parallel_path(torch, work, tag, per_frame):
         step = sharded_train_step(model, opt, mesh)
         losses = [float(step(batch)) for _ in range(2)]
         check(all(np.isfinite(losses)), f"NCCL DDP losses {losses}")
-        ddp_ms = _step_ms(torch, lambda: step(batch), 10)
-        plain_ms = _step_ms(torch, lambda: train_step(model, opt, batch), 10)
+        ddp_ms = _wall_ms(torch, lambda: step(batch), 10)
+        plain_ms = _wall_ms(torch, lambda: train_step(model, opt, batch), 10)
     finally:
         dist.destroy_process_group()
     print(f"parallel: one {backend} rank, DDP step of bf16 darknet53, batch "
@@ -3676,11 +3210,11 @@ def _parallel_child(argv) -> int:
         res["frames_equal"] = same
         check(all(same), f"frame_parallel_transfer != transfer_fast: {same}")
 
-        # times: the slab integrate (CUDA events) and the probe-and-merge
-        # (host clock; gloo reduces on the host)
-        res["integrate_ms"] = cuda_ms(
-            lambda: integrate_sharded(slab, spec, mesh, *img, **fov), 5)
-        res["probe_merge_ms"] = _step_ms(
+        # times, on the host clock: the slab integrate and the
+        # probe-and-merge (gloo reduces on the host)
+        res["integrate_ms"] = _wall_ms(
+            torch, lambda: integrate_sharded(slab, spec, mesh, *img, **fov), 5)
+        res["probe_merge_ms"] = _wall_ms(
             torch, lambda: sharded_band_probe(slab, spec, mesh, *src), 5)
         res["bytes_reduced"] = 16 * src[0].numel()
         del slab, scan
@@ -3706,7 +3240,7 @@ def _parallel_child(argv) -> int:
               f"DDP darknet53 beyond its bounds: max "
               f"{res['ddp_max_err']}, share within 1e-4 "
               f"{res['ddp_share_1e-4']}")
-        res["ddp_step_ms"] = _step_ms(torch, lambda: step(mine), 5)
+        res["ddp_step_ms"] = _wall_ms(torch, lambda: step(mine), 5)
         seg_cfg = model.cfg
         del model, opt, batch, mine, step, want, diff
         torch.cuda.empty_cache()

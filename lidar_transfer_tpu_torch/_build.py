@@ -9,9 +9,7 @@ never at import: importing this module needs no ``nvcc`` and no card.
 
 ``-fmad=false`` keeps every product and sum rounded on its own, as the
 plain PyTorch versions round them, so a kernel and its plain version agree
-bit for bit wherever they do the same arithmetic. ``LT_NVCC_EXTRA`` in the
-environment adds flags (``-DNAME`` selects a measurement variant that a
-source keeps under ``#ifdef NAME``); they enter the library's hash.
+bit for bit wherever they do the same arithmetic.
 
 Each wrapper launches through :func:`launch`, which raises on a nonzero
 ``cudaError_t`` and adds one to the kernel's launch count.
@@ -97,12 +95,8 @@ def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
 
 
-def nvcc_flags() -> tuple[str, ...]:
-    return NVCC_FLAGS + tuple(os.environ.get("LT_NVCC_EXTRA", "").split())
-
-
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(nvcc_flags()).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -144,10 +138,9 @@ def build() -> Path:
     cus = [s for s in sources() if s.suffix == ".cu"]
     objs = [tmp.with_name(f"{tmp.name}.{s.stem}.o") for s in cus]
     try:
-        flags = nvcc_flags()
-        _run([[nvcc, *flags, "-c", str(s), "-o", str(o)]
+        _run([[nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(o)]
               for s, o in zip(cus, objs)])
-        _run([[nvcc, *flags, "-shared", "-o", str(tmp),
+        _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
                *(str(o) for o in objs)]])
     finally:
         for o in objs:

@@ -21,10 +21,9 @@ padded points):
           (a tree whose kernel has one mode gives that one);
   small   the confusion counts at C = 260 and 20, skewed and uniform
           labels, N = 131,072 and 2^20; the z-buffer without a workspace
-          and with one; an empty kernel launch (with
-          ``LT_NVCC_EXTRA=-DLT_CONFUSION_CLUSTER=16``, or ``=8``, in the
-          environment the confusion cases time the kernel's one-cluster
-          variant, ``csrc/confusion.cu``, which was measured and not kept);
+          and with one; each of the two as PyTorch's library calls compute
+          it (the yardstick; a result that differs from the kernel's
+          raises); an empty kernel launch;
   frame   three mergemesh frames (HDL64 to HDL32, ``transfer_fast``): the
           device operations they issue;
   march   row B, the raymarch kernel, on the reference march (the first
@@ -271,6 +270,25 @@ def _small_cases(case, scan, dev) -> None:
                      lambda: TF.confusion_matrix(pred_t, tgt_t, C),
                      bounds.confusion(m, C), 200, 50)
 
+    # the confusion counts in library calls: the cell indices (pred * C +
+    # target, C * C for a stray id) and ``bincount``
+    m, C = 131072, 260
+    pred_t, tgt_t = (torch.from_numpy(a).to(dev) for a in confusion_labels(
+        rng, m, C, True, [0, 10, 40, 48, 50, 70, 252], stray=True))
+
+    def confusion_library():
+        ok = (pred_t >= 0) & (pred_t < C) & (tgt_t >= 0) & (tgt_t < C)
+        cells = torch.where(ok, pred_t * C + tgt_t, C * C).to(torch.int64)
+        return torch.bincount(cells, minlength=C * C + 1)[:C * C].reshape(
+            C, C)
+
+    ref = TF.confusion_matrix(pred_t, tgt_t, C)
+    if not torch.equal(confusion_library().to(ref.dtype), ref):
+        raise AssertionError("the confusion's library calls (bincount) != "
+                             "its kernel")
+    case("confusion library", confusion_library, bounds.confusion(m, C),
+         200, 50, note=f"N={m} C={C} skewed, stray ids")
+
     pts, _, _, valid = scan
     npix = HDL64.H * HDL64.W
     pix, key, *_ = TP._pixel_keys(pts, valid, HDL64.fov_up, HDL64.fov_down,
@@ -284,6 +302,27 @@ def _small_cases(case, scan, dev) -> None:
     case(f"{what}, workspace",
          lambda: TP.zbuffer_winners(pix, key, npix, workspace=ws), zb, 200,
          50)
+
+    # the z-buffer in library calls: the packing of (key bits << 32) |
+    # index, the reset of the buffer (``fill_``), ``scatter_reduce_`` amin
+    # and the decode to winners
+    n, empty = pix.shape[0], torch.iinfo(torch.int64).max
+    buf = torch.empty(npix + 1, dtype=torch.int64, device=dev)
+
+    def zbuffer_library():
+        words = ((key.view(torch.int32).to(torch.int64) << 32)
+                 | torch.arange(n, device=dev))
+        where = torch.where((pix < 0) | (pix >= npix), npix,
+                            pix).to(torch.int64)     # npix: the overflow
+        buf.fill_(empty)
+        buf.scatter_reduce_(0, where, words, "amin")
+        won = buf[:npix]
+        return torch.where(won == empty, -1,
+                           won & 0xFFFFFFFF).to(torch.int32)
+
+    if not torch.equal(zbuffer_library(), TP.zbuffer_winners(pix, key, npix)):
+        raise AssertionError("the z-buffer's library calls != its kernel")
+    case("zbuffer library", zbuffer_library, zb, 200, 50, note=what)
     lib, stream = _build.library(), _build.stream_handle(dev)
     case("empty kernel launch", lambda: lib.lt_empty_launch(stream),
          bounds.bound(0), 200, 50)

@@ -8,6 +8,7 @@ The kernels are held against their plain versions on the card by
 import ast
 import os
 import pkgutil
+import shutil
 import subprocess
 import sys
 
@@ -161,19 +162,23 @@ def test_mesh_entries_are_bound_and_counted():
     assert len(_build.SIGNATURES["lt_mesh_raycast"]) == 11
 
 
-def test_extra_nvcc_flags_name_another_library(monkeypatch):
-    """LT_NVCC_EXTRA adds flags to every nvcc command (a -D that selects a
-    measurement variant of a kernel) and so to the library's hash: a
-    variant never loads in place of the kernels the port ships."""
-    monkeypatch.delenv("LT_NVCC_EXTRA", raising=False)
+def test_library_name_follows_sources_and_flags(tmp_path, monkeypatch):
+    """The library is named after a hash of every source and the nvcc
+    flags: one byte changed in one .cu, or another flag, names another
+    library, so a stale build never loads in place of the sources."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
     plain = _build.library_path()
-    assert _build.nvcc_flags() == _build.NVCC_FLAGS
-    monkeypatch.setenv("LT_NVCC_EXTRA", "-DLT_CONFUSION_CLUSTER=16 -lineinfo")
-    assert _build.nvcc_flags() == _build.NVCC_FLAGS + (
-        "-DLT_CONFUSION_CLUSTER=16", "-lineinfo")
+    assert _build.library_path() == plain
+    cu = csrc / "confusion.cu"
+    text = cu.read_bytes()
+    cu.write_bytes(text + b" ")
     assert _build.library_path() != plain
-    assert "#ifdef LT_CONFUSION_CLUSTER" in (
-        _build.CSRC / "confusion.cu").read_text()
+    cu.write_bytes(text)
+    assert _build.library_path() == plain
+    monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-G",))
+    assert _build.library_path() != plain
 
 
 @pytest.mark.parametrize("case", ["raymarch", "catmesh_oracle"])
