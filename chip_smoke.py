@@ -1074,6 +1074,45 @@ def _check_zbuffer_cases(torch, rng) -> None:
           f"plain, {ws.allocations} scratch allocations")
 
 
+def _check_group_norm(torch, kernels) -> None:
+    """Kernel D against its plain version (ConvNorm's composition, under
+    autocast for bf16 as RangeNet runs it) at darknet53's distinct norm
+    shapes of a 1x64x2048 forward, in bf16 and float32, by
+    ``probes/cases.check_norm``."""
+    from lidar_transfer_tpu_torch.models.rangenet import (GN_EPS,
+                                                          GROUP_SIZE,
+                                                          RangeNetConfig)
+    from lidar_transfer_tpu_torch.ops import group_norm as GN
+    from lidar_transfer_tpu_torch.probes.cases import (check_norm,
+                                                       norm_inputs,
+                                                       norm_shapes)
+
+    dev = torch.device("cuda")
+    worst, least = 0.0, 1.0
+    for C, H, W in dict.fromkeys(norm_shapes(RangeNetConfig.darknet53(),
+                                             64, 2048)):
+        G = C // GROUP_SIZE
+        for dtype in (torch.bfloat16, torch.float32):
+            x, w, b = norm_inputs(C, H, W, dev, dtype, seed=C + W)
+            got = GN.group_norm_leaky_relu(x, G, w, b, GN_EPS)
+            with torch.autocast("cuda", dtype=torch.bfloat16,
+                                enabled=dtype != torch.float32):
+                want = GN.group_norm_leaky_relu_plain(x, G, w, b, GN_EPS)
+            torch.cuda.synchronize()
+            what = f"group_norm (1, {C}, {H}, {W}) G={G} {dtype}"
+            equal = check_norm(got, want, what)
+            err = float((got.float() - want.float()).abs().max())
+            print(f"{what}: {equal:.6f} of the elements equal, max |diff| "
+                  f"{err:g}")
+            worst, least = max(worst, err), min(least, equal)
+    print(f"group_norm: least equal share {least:.6f}, max |diff| {worst:g}")
+    kernels["group_norm"] = dict(
+        route="cuda", source="lidar_transfer_tpu_torch/csrc/group_norm.cu",
+        replaces="lidar_transfer_tpu/models/rangenet.py:80 (flax GroupNorm,"
+                 " an XLA fusion)",
+        max_abs_err=worst)
+
+
 def kernel_checks(torch, kernels) -> tuple:
     """Phase 1: build the kernels and hold each against its plain version
     on the card, filling ``kernels`` with a row each. -> the z-buffer's and
@@ -1133,6 +1172,7 @@ def kernel_checks(torch, kernels) -> tuple:
         replaces="lidar_transfer_tpu/metrics/confusion.py:73",
         max_abs_err=err)
     _check_confusion_cases(torch, rng)
+    _check_group_norm(torch, kernels)
 
     spec = TS.VolumeSpec((-6.4, -6.4, -5.0), 0.05, (256, 256, 208))
     depth = (rng.uniform(1.0, 12.0, (64, 2048))
@@ -2837,7 +2877,7 @@ def _segmentation_path(torch, work, per_frame):
           f"fake_on_real result {wf}")
     counts = {k: v + wf_counts[k] for k, v in counts.items()}
     print(f"launches on the segmentation path: {counts}")
-    for k in ("zbuffer", "confusion"):
+    for k in ("zbuffer", "confusion", "group_norm"):
         check(counts[k] > 0, f"kernel {k} never launched on the "
               "segmentation path")
     return counts

@@ -19,7 +19,10 @@ remission), the classic RangeNet 5-channel encoding.
 
 On a CUDA input ``infer`` replays a CUDA graph of the forward and its
 argmax, captured at the first call for each input shape; on any other
-device it runs the forward eagerly.
+device it runs the forward eagerly. A forward on the card without
+gradients (``infer``'s graph among them) normalises with kernel D
+(``csrc/group_norm.cu``); one that records gradients (``train_step``)
+with ATen's GroupNorm.
 
 Spans (``utils/runtime``): ``train_step`` is ``model.step`` with the
 children ``model.forward`` (the loss included), ``model.backward`` and
@@ -40,6 +43,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from lidar_transfer_tpu_torch.ops.group_norm import group_norm_leaky_relu
 from lidar_transfer_tpu_torch.utils.runtime import span
 
 #: flax's GroupNorm epsilon (``nn.GroupNorm`` defaults to 1e-5)
@@ -85,7 +89,12 @@ class ConvNorm(nn.Module):
     """Bias-free convolution, GroupNorm, leaky ReLU (0.1); the result in
     the input's dtype. ``stride_w=2`` halves the width with flax's SAME
     padding of an even width: (0, 1), so output column j starts at input
-    column 2j (``Conv2d(padding=1)`` would start it at 2j - 1)."""
+    column 2j (``Conv2d(padding=1)`` would start it at 2j - 1).
+
+    With grad mode off the norm and activation are
+    ``ops/group_norm.group_norm_leaky_relu``: kernel D on the card, ATen's
+    composition on the CPU; with grad mode on they are ATen's
+    ``nn.GroupNorm`` and ``F.leaky_relu``."""
 
     def __init__(self, cin: int, cout: int, ksize: int = 3,
                  stride_w: int = 1):
@@ -102,6 +111,10 @@ class ConvNorm(nn.Module):
         if self.stride_w == 2:
             x = F.pad(x, (0, 1))
         h = self.conv(x)
+        if not torch.is_grad_enabled():
+            n = self.norm
+            return group_norm_leaky_relu(h, n.num_groups,
+                                         n.weight, n.bias, n.eps).to(dt)
         return F.leaky_relu(self.norm(h), 0.1).to(dt)
 
 

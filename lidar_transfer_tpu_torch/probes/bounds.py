@@ -110,6 +110,14 @@ def confusion(n: int, C: int) -> Bound:
     return bound(8 * n + 4 * C * C)
 
 
+def group_norm(n: int) -> Bound:
+    """Row D: ``n`` bf16 elements read once and written once, 4 B an
+    element (the statistics' second read is the kernel's own); 8
+    operations an element (the statistics' difference, square and two
+    sums; the apply's multiply-add, comparison and slope)."""
+    return bound(4 * n, 8 * n)
+
+
 def probe_parts(dims, cw: int, n_out: int = 3) -> Bound:
     """Row 5: two (X, CW, Y) float32 column arrays read, ``n_out`` compact
     (2 B) outputs a voxel written; the body's arithmetic as the

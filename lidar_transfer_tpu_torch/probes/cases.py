@@ -1,7 +1,8 @@
 """Every case of the TSDF integrate, its chain, the geometry table, the
-confusion counts and the z-buffer, timed on the card beside its bound.
+confusion counts, the z-buffer and the fused GroupNorm, timed on the card
+beside its bound.
 
-    python -m lidar_transfer_tpu_torch.probes.cases [volume|small|frame|march|mesh ...]
+    python -m lidar_transfer_tpu_torch.probes.cases [volume|small|frame|march|mesh|norm ...]
                                                     [--only TEXT]
                                                     [--out FILE.json]
 
@@ -54,6 +55,12 @@ padded points):
           beside ``Tensor.fill_`` of the same tensors (three fills for three
           outputs) and ``torch.full``, alias_vmem also beside an in-place
           ``Tensor.add_`` of each output (the same bytes read and written).
+  norm    row D, GroupNorm with its affine and leaky ReLU
+          (``ops/group_norm``), at each distinct (C, H, W) of darknet53's
+          57 norms in a forward of 1x64x2048 in bf16, beside ATen's
+          ``F.group_norm`` + ``F.leaky_relu`` + cast under bf16 autocast
+          (the yardstick; outputs that differ beyond the card test's
+          tolerance raise), and each summed over the 57 layers.
 
 Each case gives the wrapper's time (CUDA events around back-to-back calls),
 the device time (the summed durations of the device operations of a call,
@@ -71,7 +78,7 @@ import json
 import os
 import sys
 
-GROUPS = ("volume", "small", "frame", "probes", "march", "mesh")
+GROUPS = ("volume", "small", "frame", "probes", "march", "mesh", "norm")
 DIMS = (2048, 2048, 208)
 ODD_DIMS = (2048, 2048, 206)
 SCALAR_DIMS = (2047, 2047, 206)
@@ -120,15 +127,19 @@ def measure(groups=GROUPS, only: str = "") -> list[dict]:
     _build.library()
     rows = []
 
+    def add(row):
+        rows.append(dict(row, gpu=gpu))
+        print(json.dumps(rows[-1]), flush=True)
+        return rows[-1]
+
     def case(name, fn, bound, iters, dev_iters, note="", **extra):
         if only not in name:
-            return
+            return None
         ms = timing.cuda_ms(fn, iters)
         d_ms, ops, names = timing.device_ms(fn, dev_iters)
-        rows.append(dict(case=name, ms=ms, device_ms=d_ms, device_ops=ops,
-                         ops=names, bytes=bound.bytes, bound_ms=bound.ms,
-                         bound_by=bound.by, note=note, gpu=gpu, **extra))
-        print(json.dumps(rows[-1]), flush=True)
+        return add(dict(case=name, ms=ms, device_ms=d_ms, device_ops=ops,
+                        ops=names, bytes=bound.bytes, bound_ms=bound.ms,
+                        bound_by=bound.by, note=note, **extra))
 
     # three scans of the synthetic scene, each in its own sensor frame
     scene = synthetic.Scene.default()
@@ -158,6 +169,8 @@ def measure(groups=GROUPS, only: str = "") -> list[dict]:
         _march_cases(case, scans[0], dev, np.linalg.inv(poses[0]) @ poses[1])
     if "mesh" in groups:
         _mesh_cases(case, scans[0], dev)
+    if "norm" in groups:
+        _norm_cases(case, add, dev)
     return rows
 
 
@@ -576,6 +589,116 @@ def _mesh_cases(case, scan, dev) -> None:
          bounds.mesh_raycast_dense(R, T, 1), 1, 1, triangles=T)
     del tris, bvh, keys, boxes, skeys
     torch.cuda.empty_cache()
+
+
+def norm_shapes(cfg, H: int, W: int) -> list[tuple[int, int, int]]:
+    """(C, H, W) of each GroupNorm of a ``models.RangeNet`` forward of
+    ``cfg`` on an H x W input, in the forward's order: the stem, each
+    stage's halving convolution and its blocks' two, the decoder's."""
+    W += (-W) % 2 ** len(cfg.stage_blocks)
+    shapes = [(cfg.stem_features, H, W)]
+    for n, f in zip(cfg.stage_blocks, cfg.stage_features):
+        W //= 2
+        shapes += [(f, H, W)] + [(f // 2, H, W), (f, H, W)] * n
+    for skip in reversed((cfg.stem_features,) + cfg.stage_features[:-1]):
+        W *= 2
+        shapes.append((max(skip, 32), H, W))
+    return shapes
+
+
+def norm_inputs(C: int, H: int, W: int, dev, dtype, seed: int = 0):
+    """A (1, C, H, W) input like a convolution's output (normal, a mean of
+    its own a channel) and GroupNorm parameters near their start (weight
+    about 1, bias about 0)."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn((1, C, H, W), generator=g, device=dev)
+         + torch.randn((1, C, 1, 1), generator=g, device=dev)).to(dtype)
+    w = 1 + 0.1 * torch.randn(C, generator=g, device=dev)
+    b = 0.1 * torch.randn(C, generator=g, device=dev)
+    return x, w, b
+
+
+def check_norm(got, want, what: str) -> float:
+    """Hold kernel D's output to the plain float32 composition's (both
+    sum in float32, in other orders): bf16 equal on >= 99.9 % of elements
+    and elsewhere within one bf16 ulp of the plain value or 1e-5, whichever
+    is larger (near 0 a bf16 ulp is finer than the statistics' float32
+    error, and the two may differ in sign there); float32 within 1e-5,
+    relative and absolute. Raises AssertionError otherwise; -> the share
+    of equal elements."""
+    import torch
+
+    from lidar_transfer_tpu_torch.probes.timing import bf16_ulp
+
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{what}: {got.dtype} {tuple(got.shape)}, "
+                             f"plain {want.dtype} {tuple(want.shape)}")
+    g, w = got.float(), want.float()
+    equal = float((got == want).float().mean())
+    if got.dtype == torch.bfloat16:
+        tol = torch.clamp(bf16_ulp(w), min=1e-5)
+    else:
+        tol = 1e-5 + 1e-5 * w.abs()
+    bad = (g - w).abs() > tol
+    if (got.dtype == torch.bfloat16 and equal < 0.999) or bool(bad.any()):
+        raise AssertionError(
+            f"{what}: {equal:.6f} of the elements equal, {int(bad.sum())} "
+            f"beyond the tolerance (first: {g[bad][:4].tolist()} against "
+            f"{w[bad][:4].tolist()})")
+    return equal
+
+
+def _norm_cases(case, add, dev) -> None:
+    """Row D at darknet53's norms of a forward at 1x64x2048, bf16."""
+    import collections
+
+    import torch
+    import torch.nn.functional as F
+
+    from lidar_transfer_tpu_torch.models.rangenet import (GN_EPS,
+                                                          GROUP_SIZE,
+                                                          RangeNetConfig)
+    from lidar_transfer_tpu_torch.ops import group_norm as GN
+    from lidar_transfer_tpu_torch.probes import bounds
+
+    shapes = collections.Counter(norm_shapes(RangeNetConfig.darknet53(),
+                                             64, 2048))
+    totals = {}
+    for (C, H, W), count in shapes.items():
+        x, w, b = norm_inputs(C, H, W, dev, torch.bfloat16)
+        G = C // GROUP_SIZE
+
+        def kernel():
+            return GN.group_norm_leaky_relu(x, G, w, b, GN_EPS)
+
+        def library():
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                return F.leaky_relu(F.group_norm(x, G, w, b, GN_EPS),
+                                    0.1).to(torch.bfloat16)
+
+        equal = check_norm(kernel(), library(), f"group_norm C={C} {H}x{W}")
+        bound = bounds.group_norm(x.numel())
+        what = f"C={C} G={G} {H}x{W}, {count} of the 57"
+        for name, fn in (("group_norm", kernel),
+                         ("group_norm library", library)):
+            row = case(f"{name} {what}", fn, bound, 200, 50,
+                       equal_share=equal)
+            if row is None:
+                continue
+            t = totals.setdefault(name, dict(
+                ms=0.0, device_ms=0.0, device_ops=0, bytes=0, bound_ms=0.0,
+                layers=0))
+            for k in ("ms", "device_ms", "device_ops"):
+                t[k] = (None if row[k] is None or t[k] is None
+                        else t[k] + count * row[k])
+            t["bytes"] += count * bound.bytes
+            t["bound_ms"] += count * bound.ms
+            t["layers"] += count
+    for name, t in totals.items():
+        add(dict(case=f"{name}, {t.pop('layers')} layers summed", ops={},
+                 bound_by="bytes", note="1x64x2048 bf16", **t))
 
 
 def main(argv=None) -> int:

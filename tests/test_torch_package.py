@@ -69,8 +69,9 @@ def test_imports_leave_jax_out():
 def test_build_needs_no_nvcc_until_a_launch(tmp_path, monkeypatch):
     """_build imports without nvcc; a build without nvcc raises."""
     names = sorted(p.name for p in _build.sources())
-    assert names == ["confusion.cu", "errors.cu", "mesh_bvh.cu",
-                     "mesh_raycast.cu", "probe_ablate.cu", "probe_parts.cu",
+    assert names == ["confusion.cu", "errors.cu", "group_norm.cu",
+                     "mesh_bvh.cu", "mesh_raycast.cu", "probe_ablate.cu",
+                     "probe_parts.cu",
                      "probe_runs.cuh", "probe_write.cu", "raymarch.cu",
                      "tsdf_common.cuh", "tsdf_geometry.cu",
                      "tsdf_integrate.cu", "zbuffer.cu"]
@@ -135,7 +136,7 @@ def test_cpu_calls_launch_no_kernel(small_spec, narrow_spec):
         "probe_ablate": 0, "probe_write": 0, "raymarch": 0,
         "raymarch_pack": 0, "mesh_bvh_keys": 0, "mesh_bvh_hierarchy": 0,
         "mesh_bvh_refit": 0, "mesh_bvh_reorder": 0, "mesh_raycast": 0,
-        "mesh_raycast_dense": 0}
+        "mesh_raycast_dense": 0, "group_norm": 0}
 
 
 def test_mesh_entries_are_bound_and_counted():
