@@ -1113,6 +1113,45 @@ def _check_group_norm(torch, kernels) -> None:
         max_abs_err=worst)
 
 
+def _check_ptv3_kernels(torch, kernels) -> None:
+    """Kernels E (the neighbour map) and F (the serialization codes)
+    against their plain versions on the card, bit for bit: the codes at
+    depths 1 to 16 with four clouds, the maps of kernels 3 and 5 over
+    sparse and dense cells in two clouds."""
+    from lidar_transfer_tpu_torch.ops import serialize as S
+    from lidar_transfer_tpu_torch.ops import sparse_conv as SC
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(25)
+    for bits in (1, 5, 12, 16):
+        grid = torch.randint(0, 1 << bits, (200_003, 3), generator=g,
+                             dtype=torch.int32)
+        cloud = torch.randint(0, 4, (200_003,), generator=g)
+        got = S.encode_cuda(grid.to(dev), cloud.to(dev), bits).cpu()
+        check(torch.equal(got, S.encode_plain(grid, cloud, bits)),
+              f"ptv3_serialize differs from its plain version at {bits} "
+              "bits")
+    print("ptv3_serialize: codes equal at 1, 5, 12 and 16 bits")
+    kernels["ptv3_serialize"] = dict(
+        route="cuda", source="lidar_transfer_tpu_torch/csrc/serialize.cu",
+        replaces="none (no point model in the JAX package)",
+        max_abs_err=0.0)
+    for side, k in ((40, 3), (400, 3), (40, 5), (400, 5)):
+        grid = torch.unique(torch.randint(0, side, (150_000, 3), generator=g,
+                                          dtype=torch.int32), dim=0)
+        cloud = torch.randint(0, 2, (grid.shape[0],), generator=g)
+        got = SC.neighbor_map_cuda(grid.to(dev), cloud.to(dev), k).cpu()
+        check(torch.equal(got, SC.neighbor_map_plain(grid, cloud, k)),
+              f"ptv3_neighbor_map differs from its plain version (k {k}, "
+              f"side {side})")
+    print("ptv3_neighbor_map: maps equal at kernels 3 and 5, dense and "
+          "sparse cells")
+    kernels["ptv3_neighbor_map"] = dict(
+        route="cuda", source="lidar_transfer_tpu_torch/csrc/neighbor_map.cu",
+        replaces="none (no point model in the JAX package)",
+        max_abs_err=0.0)
+
+
 def kernel_checks(torch, kernels) -> tuple:
     """Phase 1: build the kernels and hold each against its plain version
     on the card, filling ``kernels`` with a row each. -> the z-buffer's and
@@ -1173,6 +1212,7 @@ def kernel_checks(torch, kernels) -> tuple:
         max_abs_err=err)
     _check_confusion_cases(torch, rng)
     _check_group_norm(torch, kernels)
+    _check_ptv3_kernels(torch, kernels)
 
     spec = TS.VolumeSpec((-6.4, -6.4, -5.0), 0.05, (256, 256, 208))
     depth = (rng.uniform(1.0, 12.0, (64, 2048))
@@ -1273,6 +1313,8 @@ def main() -> int:
         paths["rolling"] = _rolling_path(torch, work, tag, per_frame)
         torch.cuda.empty_cache()
         paths["segmentation"] = _segmentation_path(torch, work, per_frame)
+        torch.cuda.empty_cache()
+        paths["segmentation_ptv3"] = _ptv3_path(torch, work, per_frame)
         torch.cuda.empty_cache()
         paths["parallel"] = _parallel_path(torch, work, tag, per_frame)
         torch.cuda.empty_cache()
@@ -2880,6 +2922,54 @@ def _segmentation_path(torch, work, per_frame):
     for k in ("zbuffer", "confusion", "group_norm"):
         check(counts[k] > 0, f"kernel {k} never launched on the "
               "segmentation path")
+    return counts
+
+
+def _ptv3_path(torch, work, per_frame):
+    """``lt-seg-torch --arch ptv3``'s path on ``work/kitti``: PT-v3m1 base
+    at its published widths trained by ``train_segmentation`` (batch 2,
+    bf16 products, 12 steps, a checkpoint), loaded back,
+    ``write_predictions`` (each point its cell's class) and
+    ``evaluate_semantics``. Returns the launch counts of the path."""
+    from lidar_transfer_tpu_torch import _build
+    from lidar_transfer_tpu_torch.experiments import segmentation as SG
+    from lidar_transfer_tpu_torch.models import ptv3
+
+    dev = torch.device("cuda")
+    ds = os.path.join(work, "kitti")
+    ckpt = os.path.join(work, "ptv3.pt")
+    steps = 12
+    _build.reset_launch_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        SG.train_segmentation(ds, steps=steps, batch_size=2,
+                              model_cfg=ptv3.PTv3Config.base(), seed=0,
+                              checkpoint_path=ckpt, device=dev)
+        torch.cuda.synchronize()
+    train_counts = _build.launch_counts()
+    per_frame["segmentation_ptv3.train"] = _launches_since(
+        dict.fromkeys(train_counts, 0), steps)
+    losses = [float(line.rsplit(" ", 1)[1])
+              for line in buf.getvalue().splitlines()
+              if line.startswith("step ")]
+    print(f"train_segmentation ptv3 (PT-v3m1 base), batch 2, {steps} steps: "
+          f"losses {losses}")
+    check(len(losses) == 3 and all(np.isfinite(losses)),
+          "the ptv3 train printed no finite losses")
+    model, mapper, spec = SG.load_checkpoint(ckpt, dev)
+    check(isinstance(model, ptv3.PTv3), "the ptv3 checkpoint loaded "
+          "another network")
+    pred = os.path.join(work, "pred_ptv3")
+    n = SG.write_predictions(ds, pred, model, mapper, spec, verbose=False)
+    res = SG.evaluate_semantics(ds, pred, device=dev)
+    print(f"ptv3 predictions by cell: {n} scans, mIoU {res['miou']:.4f}, "
+          f"acc {res['acc']:.4f}")
+    check(n == res["scans"] and np.isfinite(res["acc"]),
+          f"ptv3 evaluation {res}")
+    counts = _build.launch_counts()
+    print(f"launches on the ptv3 path: {counts}")
+    for k in ("ptv3_serialize", "ptv3_neighbor_map", "confusion"):
+        check(counts[k] > 0, f"kernel {k} never launched on the ptv3 path")
     return counts
 
 

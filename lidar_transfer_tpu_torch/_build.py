@@ -69,6 +69,8 @@ SIGNATURES = {
     "lt_mesh_raycast_dense": (_P, _I, _P, _I, _P, _I, _P, _P, _P),
     "lt_group_norm": (_P, _P, _P, _L, _I, _I, _L, _F, _I, _I, _I, _L, _P,
                       _P, _P, _P, _P),
+    "lt_ptv3_serialize": (_P, _P, _L, _I, _P, _P),
+    "lt_ptv3_neighbor_map": (_P, _P, _I, _I, _P, _P, _L, _P, _P),
     "lt_empty_launch": (_P,),
 }
 
@@ -79,7 +81,8 @@ _launches = {"zbuffer": 0, "confusion": 0, "tsdf_integrate": 0,
              "raymarch": 0, "raymarch_pack": 0, "mesh_bvh_keys": 0,
              "mesh_bvh_hierarchy": 0, "mesh_bvh_refit": 0,
              "mesh_bvh_reorder": 0, "mesh_raycast": 0,
-             "mesh_raycast_dense": 0, "group_norm": 0}
+             "mesh_raycast_dense": 0, "group_norm": 0,
+             "ptv3_serialize": 0, "ptv3_neighbor_map": 0}
 _lib: ctypes.CDLL | None = None
 _lock = threading.Lock()
 

@@ -1,4 +1,5 @@
-"""RangeNet segmentation harness: train / infer / eval on KITTI datasets.
+"""Segmentation harness: train / infer / eval on KITTI datasets, with
+RangeNet on range images or Point Transformer V3 on the points.
 
 Counterpart of ``lidar_transfer_tpu/experiments/segmentation.py`` (the
 ``lt-seg`` command, here ``lt-seg-torch``), in place of the reference's
@@ -15,6 +16,12 @@ evaluate_semantics.py.
                       predictions layout.
   evaluate_semantics  point-wise confusion (the confusion kernel) over
                       (prediction, ground truth) label files -> mIoU / acc.
+
+With ``model_cfg`` a ``models.ptv3.PTv3Config`` (``lt-seg-torch --arch
+ptv3``) the same entry points take the point branch: each scan's points
+``[x, y, z, remission]`` and labels go to the card whole
+(``_point_tensors``), the step grid-samples them there, and each point is
+predicted its 0.05 m cell's class; there is no range image and no kNN.
 
 Raw SemanticKITTI ids map to dense train indices through ``LabelMapper``
 (built from the config's ``labels`` block). Moving classes fold onto their
@@ -124,6 +131,22 @@ def _frame_tensors(seq, idx, spec, capacity, mapper, device):
     return feats, lbl_idx, weights
 
 
+def _point_tensors(seq, idx, mapper, device):
+    """One scan's points for the point branch -> (points (n, 4) float32
+    ``[x, y, z, remission]``, labels (n,) int64 class indices with -1 for
+    the ignored classes), both on ``device``: two uploads and the label
+    table."""
+    pts, rem, lab = seq.read(idx)
+    p = upload(np.concatenate([pts, rem[:, None]], 1).astype(np.float32),
+               device)
+    raw = upload(lab.astype(np.int32), device)
+    lut = mapper.raw_to_index.astype(np.int64)
+    lut[np.isin(lut, mapper.ignore_indices)] = -1
+    lut = upload(lut, device)
+    with span("loader.labels"):
+        return p, lut[torch.clamp(raw, 0, lut.shape[0] - 1).long()]
+
+
 def save_checkpoint(path: str, model, mapper, spec, *, optimizer=None,
                     step: int | None = None,
                     sampling: dict | None = None) -> None:
@@ -154,12 +177,21 @@ def _read_checkpoint(path: str, device) -> dict:
 def load_checkpoint(path: str, device="cuda"):
     """-> (model on ``device``, mapper, spec)."""
     from lidar_transfer_tpu_torch.models import RangeNet
+    from lidar_transfer_tpu_torch.models.ptv3 import PTv3, PTv3Config
 
     device = _device(device)
     blob = _read_checkpoint(path, device)
-    model = RangeNet(blob["model_cfg"]).to(device)
+    net = PTv3 if isinstance(blob["model_cfg"], PTv3Config) else RangeNet
+    model = net(blob["model_cfg"]).to(device)
     model.load_state_dict(blob["model_state"])
     return model, blob["mapper"], blob["spec"]
+
+
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+    """The generator of train step ``step`` of a run seeded ``seed``: the
+    point branch's cell picks, order shuffles and drop path."""
+    return torch.Generator(device=device).manual_seed(
+        (seed * 1_000_003 + step) % (1 << 63))
 
 
 def train_segmentation(dataset: str, *, sequences=("00",), steps: int = 100,
@@ -169,10 +201,11 @@ def train_segmentation(dataset: str, *, sequences=("00",), steps: int = 100,
                        use_mesh: bool = True, checkpoint_path=None,
                        checkpoint_every: int = 0, resume: bool = False,
                        device="cuda"):
-    """Train RangeNet on a KITTI-format dataset. Returns (model, mapper,
-    spec). ``checkpoint_every`` > 0 writes ``checkpoint_path`` every N
-    steps; ``resume=True`` continues a killed run from that checkpoint
-    (parameters, Adam state, step, and the same sampling stream replayed).
+    """Train RangeNet (or PT-v3m1) on a KITTI-format dataset. Returns
+    (model, mapper, spec). ``checkpoint_every`` > 0 writes
+    ``checkpoint_path`` every N steps; ``resume=True`` continues a killed
+    run from that checkpoint (parameters, optimizer state, step, and the
+    same sampling stream replayed).
 
     ``use_mesh`` under a process group of more than one rank whose count
     divides ``batch_size``: every rank draws the same sampling stream,
@@ -181,6 +214,13 @@ def train_segmentation(dataset: str, *, sequences=("00",), steps: int = 100,
     prints and writes the checkpoint (the model's own state, no
     ``module.`` prefix), and every rank waits for it. Otherwise each
     process trains the whole batch on its own device.
+
+    ``model_cfg`` a ``PTv3Config``: Point Transformer V3 on the points
+    (``_point_tensors``, ``models.ptv3.train_step`` with AdamW at the
+    configuration's rates, ``learning_rate`` and ``width`` unused); step
+    ``k`` draws its cell picks, order shuffles and drop path from
+    ``step_generator(seed, k)``. It takes no mesh: under a process group
+    of more than one rank with ``use_mesh`` it raises.
     """
     import torch.distributed as dist
 
@@ -189,12 +229,17 @@ def train_segmentation(dataset: str, *, sequences=("00",), steps: int = 100,
     from lidar_transfer_tpu_torch.models import (RangeNet, RangeNetConfig,
                                                  make_train_state,
                                                  train_step)
+    from lidar_transfer_tpu_torch.models import ptv3
     from lidar_transfer_tpu_torch.utils.prefetch import Prefetcher
 
     device = _device(device)
+    points = isinstance(model_cfg, ptv3.PTv3Config)
     grouped = dist.is_available() and dist.is_initialized()
     rank = dist.get_rank() if grouped else 0
     world = dist.get_world_size() if grouped and use_mesh else 1
+    if points and world > 1:
+        raise ValueError("PT-v3m1 trains in one process; data-parallel "
+                         "training is RangeNet's")
     verbose = verbose and rank == 0
     cfg = cfg or TransferConfig()
     spec = SensorSpec.from_yaml(os.path.join(dataset, "config.yaml"))
@@ -205,11 +250,19 @@ def train_segmentation(dataset: str, *, sequences=("00",), steps: int = 100,
             spec, angle_res_hor=spec.fov_hor / (width + 0.5))
     mapper = LabelMapper.from_labels(dict(cfg.labels),
                                      ignore_classes=cfg.ignore_classes)
-    model_cfg = model_cfg or RangeNetConfig.darknet21(
-        num_classes=mapper.num_classes)
-    model = RangeNet(model_cfg).to(device)
-    optimizer = make_train_state(model, torch.Generator().manual_seed(seed),
-                                 learning_rate)
+    if points:
+        model_cfg = dataclasses.replace(model_cfg,
+                                        num_classes=mapper.num_classes)
+        model = ptv3.PTv3(model_cfg)
+        model.init_parameters(torch.Generator().manual_seed(seed))
+        model.to(device)
+        optimizer = ptv3.make_optimizer(model)
+    else:
+        model_cfg = model_cfg or RangeNetConfig.darknet21(
+            num_classes=mapper.num_classes)
+        model = RangeNet(model_cfg).to(device)
+        optimizer = make_train_state(
+            model, torch.Generator().manual_seed(seed), learning_rate)
 
     seqs = [kitti.KittiSequence.open(dataset, s) for s in sequences]
     capacity = kitti.scan_capacity(max(
@@ -249,10 +302,18 @@ def train_segmentation(dataset: str, *, sequences=("00",), steps: int = 100,
 
         # model=1: the batch alone is split (no shard_params_tp here)
         mesh = make_mesh(model=1)
-        step_fn = sharded_train_step(model, optimizer, mesh)
+        sharded = sharded_train_step(model, optimizer, mesh)
         lo, hi = rank * batch_size // world, (rank + 1) * batch_size // world
+
+        def step_fn(step, batch):
+            return sharded(batch)
+    elif points:
+        def step_fn(step, batch):
+            return ptv3.train_step(model, optimizer, batch,
+                                   step_generator(seed, step, device))
+        lo, hi = 0, batch_size
     else:
-        def step_fn(batch):
+        def step_fn(step, batch):
             return train_step(model, optimizer, batch)
         lo, hi = 0, batch_size
 
@@ -277,18 +338,21 @@ def train_segmentation(dataset: str, *, sequences=("00",), steps: int = 100,
                   for _ in range(start_step, steps)]
 
     def load_batch(step):
-        frames = [_frame_tensors(seqs[si], fi, spec, capacity, mapper,
-                                 device)
-                  for si, fi in (all_frames[k] for k in
-                                 step_picks[step - start_step][lo:hi])]
-        f, l, w = zip(*frames)
+        picked = [all_frames[k] for k in step_picks[step - start_step][lo:hi]]
+        if points:
+            p, l = zip(*(_point_tensors(seqs[si], fi, mapper, device)
+                         for si, fi in picked))
+            return dict(points=torch.cat(p), labels=torch.cat(l),
+                        counts=[t.shape[0] for t in p])
+        f, l, w = zip(*(_frame_tensors(seqs[si], fi, spec, capacity, mapper,
+                                       device) for si, fi in picked))
         return dict(features=torch.stack(f), labels=torch.stack(l),
                     weights=torch.stack(w))
 
     with Prefetcher(load_batch, range(start_step, steps)) as batches:
         for step, batch in batches:
             # the loss stays on the device; reading it waits for the step
-            loss = step_fn(batch)
+            loss = step_fn(step, batch)
             if verbose and (step % 10 == 0 or step == steps - 1):
                 print(f"step {step}: loss {float(loss):.4f}")
             if (checkpoint_path and checkpoint_every
@@ -310,15 +374,22 @@ def write_predictions(dataset: str, out_root: str, model, mapper, spec, *,
     predictions/<i>.label``, uint32 raw ids, one per point).
 
     Each point gets the class of its range-image pixel; with ``knn=True``
-    RangeNet++'s kNN cleanup refines it (``models/postproc.py``). Scan
+    RangeNet++'s kNN cleanup refines it (``models/postproc.py``). A
+    PT-v3m1 ``model`` gives each point its 0.05 m cell's class
+    (``models.ptv3.predict``; ``knn`` is refused). Scan
     reads are prefetched, and the results come to the host as one stacked
     array per ``batch`` frames. Returns the number of scans written.
     """
     from lidar_transfer_tpu_torch.datasets import kitti
     from lidar_transfer_tpu_torch.models.postproc import knn_cleanup
+    from lidar_transfer_tpu_torch.models import ptv3
     from lidar_transfer_tpu_torch.models.rangenet import infer
     from lidar_transfer_tpu_torch.utils.prefetch import Prefetcher
 
+    points = isinstance(model, ptv3.PTv3)
+    if points and knn:
+        raise ValueError("the kNN cleanup needs a range image; PT-v3m1 "
+                         "predicts each point by its cell")
     device = next(model.parameters()).device
     raw_lut = torch.tensor(mapper.raw_ids, dtype=torch.int32, device=device)
     n = 0
@@ -333,6 +404,13 @@ def write_predictions(dataset: str, out_root: str, model, mapper, spec, *,
             """-> ((capacity,) raw-id predictions on the device, the
             scan's point count)."""
             pts, rem = kitti.read_scan_file(seq.scan_files[idx])
+            if points:
+                p = upload(np.concatenate([pts, rem[:, None]], 1)
+                           .astype(np.float32), device)
+                pred = ptv3.predict(model, p, [pts.shape[0]])
+                raw = torch.zeros(capacity, dtype=torch.int32, device=device)
+                raw[:pts.shape[0]] = raw_lut[pred]
+                return raw, pts.shape[0]
             ri, feats = _project(pts, rem, np.zeros(pts.shape[0], np.int32),
                                  spec, capacity, device)
             pred_img = infer(model, feats[None])[0]
@@ -428,13 +506,23 @@ def main(argv=None) -> int:
     pt.add_argument("--sequences", "-s", nargs="+", default=["00"])
     pt.add_argument("--steps", type=int, default=100)
     pt.add_argument("--batch-size", type=int, default=1)
-    pt.add_argument("--lr", type=float, default=1e-3)
+    pt.add_argument("--lr", type=float, default=1e-3,
+                    help="Adam's learning rate (RangeNet; ptv3 takes "
+                         "PT-v3m1's AdamW rates, 0.002 and 0.0002 for the "
+                         "blocks).")
     pt.add_argument("--arch", default="darknet21",
-                    choices=["darknet53", "darknet21", "tiny"],
-                    help="Backbone (darknet53 = bonnetal's published "
-                         "shape; darknet21 default; tiny = smoke).")
+                    choices=["darknet53", "darknet21", "tiny", "ptv3"],
+                    help="Network: a RangeNet on range images (darknet53 "
+                         "= bonnetal's published shape; darknet21 default; "
+                         "tiny = smoke), or ptv3, Point Transformer V3 "
+                         "(Pointcept's PT-v3m1 SemanticKITTI base) on each "
+                         "scan's points [x, y, z, remission], grid-sampled "
+                         "at 0.05 m on the card, each point predicted its "
+                         "cell's class (no range image, no kNN; one "
+                         "process).")
     pt.add_argument("--tiny", action="store_true",
-                    help="Alias for --arch tiny (tests/smoke).")
+                    help="Alias for --arch tiny (tests/smoke); with "
+                         "--arch ptv3, PT-v3m1's two-scale smoke shape.")
     pt.add_argument("--remat", action="store_true",
                     help="Recompute the encoder's blocks in the backward "
                          "(less activation memory, more compute; "
@@ -481,10 +569,18 @@ def main(argv=None) -> int:
         from lidar_transfer_tpu_torch.parallel.multihost import (
             initialize_from_env)
 
-        arch = "tiny" if args.tiny else args.arch
+        from lidar_transfer_tpu_torch.models.ptv3 import PTv3Config
+
         mapper = LabelMapper.from_labels(dict(TransferConfig().labels))
-        model_cfg = getattr(RangeNetConfig, arch)(
-            num_classes=mapper.num_classes)
+        if args.arch == "ptv3":
+            model_cfg = (PTv3Config.tiny if args.tiny else PTv3Config.base)(
+                num_classes=mapper.num_classes)
+        else:
+            model_cfg = getattr(RangeNetConfig,
+                                "tiny" if args.tiny else args.arch)(
+                num_classes=mapper.num_classes)
+        if args.remat and args.arch == "ptv3":
+            p.error("--remat recomputes RangeNet's encoder; ptv3 has none")
         if args.remat:
             model_cfg = dataclasses.replace(model_cfg, remat=True)
         # under torchrun: one rank a process, data-parallel steps

@@ -118,6 +118,18 @@ def group_norm(n: int) -> Bound:
     return bound(4 * n, 8 * n)
 
 
+def ptv3_serialize(n: int) -> Bound:
+    """Row F: ``n`` points' int32 cells and cloud ids read (16 B), their
+    four int64 codes written (32 B); integer work only."""
+    return bound(48 * n, 0)
+
+
+def ptv3_neighbor_map(n: int, k: int) -> Bound:
+    """Row E: ``n`` cells and cloud ids read (16 B each), the (n, k^3)
+    int32 map written; the table's own traffic is the kernel's choice."""
+    return bound(n * (16 + 4 * k ** 3), 0)
+
+
 def probe_parts(dims, cw: int, n_out: int = 3) -> Bound:
     """Row 5: two (X, CW, Y) float32 column arrays read, ``n_out`` compact
     (2 B) outputs a voxel written; the body's arithmetic as the

@@ -1,8 +1,8 @@
 """Every case of the TSDF integrate, its chain, the geometry table, the
-confusion counts, the z-buffer and the fused GroupNorm, timed on the card
-beside its bound.
+confusion counts, the z-buffer, the fused GroupNorm and PT-v3m1's two
+kernels, timed on the card beside its bound.
 
-    python -m lidar_transfer_tpu_torch.probes.cases [volume|small|frame|march|mesh|norm ...]
+    python -m lidar_transfer_tpu_torch.probes.cases [volume|small|frame|march|mesh|norm|ptv3 ...]
                                                     [--only TEXT]
                                                     [--out FILE.json]
 
@@ -61,6 +61,10 @@ padded points):
           ``F.group_norm`` + ``F.leaky_relu`` + cast under bf16 autocast
           (the yardstick; outputs that differ beyond the card test's
           tolerance raise), and each summed over the 57 layers.
+  ptv3    rows F and E, PT-v3m1's serialization codes (``ops/serialize``)
+          and neighbour maps of kernels 3 and 5 (``ops/sparse_conv``) of
+          the 0.05 m cells of four synthetic HDL-64E scans, each beside its
+          plain version on the card.
 
 Each case gives the wrapper's time (CUDA events around back-to-back calls),
 the device time (the summed durations of the device operations of a call,
@@ -78,7 +82,8 @@ import json
 import os
 import sys
 
-GROUPS = ("volume", "small", "frame", "probes", "march", "mesh", "norm")
+GROUPS = ("volume", "small", "frame", "probes", "march", "mesh", "norm",
+          "ptv3")
 DIMS = (2048, 2048, 208)
 ODD_DIMS = (2048, 2048, 206)
 SCALAR_DIMS = (2047, 2047, 206)
@@ -171,6 +176,8 @@ def measure(groups=GROUPS, only: str = "") -> list[dict]:
         _mesh_cases(case, scans[0], dev)
     if "norm" in groups:
         _norm_cases(case, add, dev)
+    if "ptv3" in groups:
+        _ptv3_cases(case, dev)
     return rows
 
 
@@ -699,6 +706,55 @@ def _norm_cases(case, add, dev) -> None:
     for name, t in totals.items():
         add(dict(case=f"{name}, {t.pop('layers')} layers summed", ops={},
                  bound_by="bytes", note="1x64x2048 bf16", **t))
+
+
+def ptv3_cells(dev, scans: int = 4):
+    """The 0.05 m cells of ``scans`` HDL-64E scans of the synthetic
+    scene, as PT-v3m1's step samples them -> (cells (N, 3) int32, scan ids
+    (N,))."""
+    import numpy as np
+    import torch
+
+    from lidar_transfer_tpu_torch.config import HDL64
+    from lidar_transfer_tpu_torch.datasets import synthetic
+    from lidar_transfer_tpu_torch.models.ptv3 import grid_sample
+
+    scene = synthetic.Scene.default()
+    pts = [synthetic.simulate_scan(scene, HDL64, pose)[0]
+           for pose in synthetic.straight_line_poses(scans)]
+    points = torch.from_numpy(np.concatenate(pts)).to(dev)
+    _, grid, cloud, _, _ = grid_sample(points, [len(p) for p in pts], 0.05)
+    return grid, cloud
+
+
+def _ptv3_cases(case, dev) -> None:
+    """Rows E and F at scale 0 of a PT-v3m1 step of four HDL-64E scans,
+    each beside its plain version on the same card (the yardstick; a
+    kernel that differs from it raises)."""
+    from lidar_transfer_tpu_torch.ops import serialize as S
+    from lidar_transfer_tpu_torch.ops import sparse_conv as SC
+    from lidar_transfer_tpu_torch.probes import bounds
+
+    grid, cloud = ptv3_cells(dev)
+    n, bits = grid.shape[0], S.depth(grid)
+    if not (S.encode_cuda(grid, cloud, bits)
+            == S.encode_plain(grid, cloud, bits)).all():
+        raise AssertionError("ptv3_serialize differs from its plain version")
+    what = f"N={n}, {bits} bits, 4 scans"
+    for name, fn in (("ptv3_serialize", S.encode_cuda),
+                     ("ptv3_serialize plain", S.encode_plain)):
+        case(f"{name} {what}", lambda: fn(grid, cloud, bits),
+             bounds.ptv3_serialize(n), 50, 10)
+    for k in (3, 5):
+        if not (SC.neighbor_map_cuda(grid, cloud, k)
+                == SC.neighbor_map_plain(grid, cloud, k)).all():
+            raise AssertionError(f"ptv3_neighbor_map k={k} differs from its "
+                                 "plain version")
+        for name, fn in (("ptv3_neighbor_map", SC.neighbor_map_cuda),
+                         ("ptv3_neighbor_map plain", SC.neighbor_map_plain)):
+            case(f"{name} k={k} N={n}, 4 scans",
+                 lambda fn=fn: fn(grid, cloud, k),
+                 bounds.ptv3_neighbor_map(n, k), 20, 5)
 
 
 def main(argv=None) -> int:
